@@ -1,19 +1,21 @@
 #!/usr/bin/env python3
-"""Chip smoke for garage_tpu_torch, the PyTorch/CUDA port of the block
-data path, on one NVIDIA GPU (written for an H100).
+"""Chip smoke for garage_tpu_torch, the PyTorch/CUDA port, on one
+NVIDIA GPU (written for an H100).
 
     python3 chip_smoke.py            # from the root of a checkout
 
 1. Builds the CUDA kernels from csrc/ (one nvcc per source, in parallel).
 2. Kernel phase: calls each kernel's wrapper on the card at the shapes
-   the main path gives it — G1 gf_apply (RS(10,4) encode, decode and
-   repair with mixed erasure patterns), G2 gf_check, B3 blake3_rows —
-   and holds the result byte for byte against its plain torch version
-   on the same inputs and against the native C oracles; times each
-   with CUDA events (median of 20 launches) beside its bound.
-3. Main path, with every launch count set to 0 just before it and read
-   just after: a DeviceFeeder(codec=ErasureCodec(10, 4),
-   mode="require", max_batch=256) on cuda:0 drives
+   the main paths give it — G1 gf_apply (RS(10,4) encode, decode and
+   repair with mixed erasure patterns), G2 gf_check, B3 blake3_rows, S2
+   sha256_rows (SHA padding edges up to 8 KiB, and 8 and 256 rows of a
+   64 KiB chunk) — and holds the result byte for byte against its plain
+   torch version on the same inputs and against the native C oracles
+   (S2 against hashlib); times each with CUDA events (median of 20
+   launches) beside its bound.
+3. Block path, with every launch count set to 0 just before it and read
+   just after: a DeviceFeeder(codec=ErasureCodec(10, 4), max_batch=256)
+   on cuda:0 drives
    - PUT: 1 GiB (1024 blocks of 1 MiB, made from a seed) as 8
      concurrent objects; each block through hash_with_md5 (one
      native.Md5 per object), then encode_put with the scheme-byte
@@ -26,14 +28,25 @@ data path, on one NVIDIA GPU (written for an H100).
    - scrub: verify_blocks and parity_check over every stripe with one
      flipped byte planted in one shard: exactly that stripe is flagged;
    - repair: the 4 erased shards of every block rebuilt byte-identical.
-4. Prints the card (nvidia-smi name and power limit), the build time,
-   per-kernel launches / ms / GB/s, the path's rates and the feeder's
+4. S3 path, with the launch counts set to 0 again: 14 port Garage nodes
+   on cuda:0 in this process (erasure(10,4), 1 MiB blocks, loopback
+   transport), node 0's S3 front end on a loopback TCP port, a key and
+   a bucket made through the admin RPC handler; 8 client threads
+   (tests/s3util.py, an independent stdlib signer) PUT 64 objects of
+   16 MiB as STREAMING-AWS4-HMAC-SHA256-PAYLOAD in 64 KiB chunks, 8
+   more the same way under torch.profiler (the device's busy time and
+   idle share in that window, from the trace), 16 more with
+   UNSIGNED-PAYLOAD, GET all of them, stop 4 nodes and GET 16
+   degraded; every body and MD5 ETag is checked, and every signed
+   chunk of the first round must have reached S2.
+5. Prints the card (nvidia-smi name and power limit), the build time,
+   per-kernel launches / ms / GB/s, the paths' rates and the feeders'
    counters, a `{"kernels": [...]}` line, and last
    `{"ok": true, "device": {...}}`.
 
-Any mismatch, a kernel with no launch on the main path, or a host
-fallback exits non-zero without the last line; so does a machine
-without CUDA, or a directory without the garage_tpu_torch package.
+Any mismatch, a kernel with no launch on its path, or a host fallback
+exits non-zero without the last line; so does a machine without CUDA,
+or a directory without the garage_tpu_torch package.
 """
 
 from __future__ import annotations
@@ -70,6 +83,29 @@ LANE_OPS_PER_S = 67e12 / 2
 # (2 three-input adds and 2 two-input adds as IADD3, 4 xors, 4 rotates
 # as funnel shifts or byte permutes) + 8 xors for the output words
 B3_OPS_PER_COMPRESSION = 7 * 8 * 12 + 8
+# one SHA-256 compression on sm_90: 64 rounds x 14 instructions (6
+# rotates as funnel shifts, 4 LOP3 for the two sigmas, ch and maj, 4
+# adds as IADD3) + 48 schedule steps x 10 (4 shifts, 2 LOP3, 2 IADD3,
+# 2 more shift/xor) + 4 vector loads, 16 byte swaps, 8 state adds and
+# the loop: ~1,407
+S2_OPS_PER_COMPRESSION = 64 * 14 + 48 * 10 + 31
+# the serial floor of one message, S2's operations bound: its blocks
+# are compressed in sequence by one thread, and one warp issues at most
+# one instruction per clock (each round's critical path through `e`,
+# ~4 dependent instructions of ~4 cycles, is shorter), so a message
+# takes at least its blocks x S2_SERIAL_CYCLES cycles at the card's top
+# SM clock (nvidia-smi clocks.max.sm, read in the run)
+S2_SERIAL_CYCLES = max(64 * 4 * 4, S2_OPS_PER_COMPRESSION)
+# S3 phase: Garage's erasure(10,4) on 14 nodes, 1 MiB blocks, SigV4
+# aws-chunked bodies in 64 KiB chunks; 9 metadata replicas, the fewest
+# whose majority quorums survive the m = 4 node failures the erasure
+# code survives (2 x 4 + 1)
+S3_RF = 9
+S3_OBJECTS = 64
+S3_OBJ_SIZE = 16 << 20
+S3_CHUNK = 64 << 10
+S3_UNSIGNED = 16
+S3_CLIENTS = 8
 
 
 class SmokeError(Exception):
@@ -122,7 +158,7 @@ def patterns(rng, n: int) -> list[tuple[tuple, tuple]]:
     return out
 
 
-def kernel_phase(torch, data: np.ndarray, rng, dev) -> dict:
+def kernel_phase(torch, data: np.ndarray, rng, dev, sm_hz: float) -> dict:
     from garage_tpu_torch import native
     from garage_tpu_torch.block.device_backend import round_vec
     from garage_tpu_torch.ops import gf_kernel, rs, treehash
@@ -202,6 +238,8 @@ def kernel_phase(torch, data: np.ndarray, rng, dev) -> dict:
         res[f"gf_apply[{op}]"] = {
             "err": err,
             "ms": time_ms(torch, lambda: gf_kernel.gf_apply(mats, x)),
+            "plain_ms": time_ms(torch, lambda: gf_kernel.gf_apply_plain(
+                mats, x), reps=5, warmup=1),
             "bytes": (K + rows) * s * BATCH + rows * K * BATCH,
             "shape": f"{op} ({BATCH},{K},{s})->({BATCH},{rows},{s}), "
                      f"{len(pats)} patterns"}
@@ -254,12 +292,81 @@ def kernel_phase(torch, data: np.ndarray, rng, dev) -> dict:
         "shape": f"({PUT_BATCH},{BLOCK}) rows -> ({PUT_BATCH},32) digests"}
     del msgs, plain, got
     torch.cuda.empty_cache()
+    res.update(sha256_kernel(torch, data, dev, sm_hz))
     for r in res.values():
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = r.get("ops", 0) / LANE_OPS_PER_S * 1e3
+        # all lanes of the card, or (S2) one message's serial chain
+        t_ops = max(r.get("ops", 0) / LANE_OPS_PER_S * 1e3,
+                    r.get("serial_ms", 0.0))
         r["bound_ms"] = max(t_bytes, t_ops)
         r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         r["gbps"] = r["bytes"] / (r["ms"] * 1e-3) / 1e9
+    return res
+
+
+def sha_rows(sha, msgs: list) -> tuple[np.ndarray, np.ndarray]:
+    """(B, W) SHA-padded rows (W the longest message's padded length)
+    and (B,) block counts, as the backend stages them."""
+    nbs = np.array([sha.n_blocks_for(len(m)) for m in msgs], dtype=np.int32)
+    buf = np.zeros((len(msgs), int(nbs.max()) * sha.BLOCK), dtype=np.uint8)
+    for i, m in enumerate(msgs):
+        sha.pad_row_into(buf[i], m)
+    return buf, nbs
+
+
+def sha256_kernel(torch, data: np.ndarray, dev, sm_hz: float) -> dict:
+    """S2 against its plain torch version (SHA padding edges up to 8 KiB,
+    and the path's batch of 64 KiB chunks) and against hashlib (8 and
+    256 rows of 64 KiB)."""
+    from garage_tpu_torch.ops import sha256 as sha
+
+    res = {}
+    lens = [0, 55, 56, 63, 64, 119, 120, 8192]
+    msgs = [data[i * 9973:i * 9973 + n].tobytes() for i, n in enumerate(lens)]
+    buf, nbs = sha_rows(sha, msgs)
+    m_t, n_t = torch.from_numpy(buf).to(dev), torch.from_numpy(nbs).to(dev)
+    got = sha.hash_rows(m_t, n_t)
+    plain = sha.hash_rows_plain(m_t, n_t)
+    check(torch.equal(got, plain), f"S2 != plain torch at {lens}")
+    got_np = got.cpu().numpy()
+    check(all(got_np[i].tobytes() == hashlib.sha256(m).digest()
+              for i, m in enumerate(msgs)), f"S2 != hashlib at {lens}")
+    out = {}
+    for rows in (S3_CLIENTS, BATCH):
+        msgs = [data[i * S3_CHUNK:(i + 1) * S3_CHUNK].tobytes()
+                for i in range(rows)]
+        buf, nbs = sha_rows(sha, msgs)
+        m_t = torch.from_numpy(buf).to(dev)
+        n_t = torch.from_numpy(nbs).to(dev)
+        got_np = sha.hash_rows(m_t, n_t).cpu().numpy()
+        check(all(got_np[i].tobytes() == hashlib.sha256(m).digest()
+                  for i, m in enumerate(msgs)),
+              f"S2 != hashlib at {rows} rows of {S3_CHUNK} B")
+        t = time.perf_counter()
+        for m in msgs:
+            hashlib.sha256(m).digest()
+        host_ms = (time.perf_counter() - t) * 1e3
+        comp = rows * int(nbs[0])
+        out[rows] = {
+            "err": 0,
+            "ms": time_ms(torch, lambda: sha.hash_rows(m_t, n_t)),
+            "bytes": buf.size + 4 * rows + 32 * rows,
+            "ops": comp * S2_OPS_PER_COMPRESSION,
+            "serial_ms": int(nbs.max()) * S2_SERIAL_CYCLES / sm_hz * 1e3,
+            "hashlib_ms": host_ms,
+            "shape": f"({rows},{buf.shape[1]}) rows of {S3_CHUNK} B -> "
+                     f"({rows},32) digests"}
+        if rows == S3_CLIENTS:
+            # the plain version at the path's batch: ~1.9 M small launches
+            t = time.perf_counter()
+            plain = sha.hash_rows_plain(m_t, n_t)
+            torch.cuda.synchronize()
+            out[rows]["plain_ms"] = (time.perf_counter() - t) * 1e3
+            got = sha.hash_rows(m_t, n_t)
+            check(torch.equal(got, plain),
+                  f"S2 != plain torch at {rows} rows of {S3_CHUNK} B")
+    res["sha256_rows"] = out[S3_CLIENTS]
+    res["sha256_rows[256]"] = out[BATCH]
     return res
 
 
@@ -398,6 +505,255 @@ async def main_path(data: np.ndarray, root: str, rng, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# S3 phase: a port-composed erasure(10,4) cluster behind the S3 front end
+# ---------------------------------------------------------------------------
+
+
+class PortCluster:
+    """`n` port Garage nodes in this process on the port's loopback
+    transport (net/local.py), one storage role each, one zone."""
+
+    def __init__(self, root: str, n: int, rf: int, erasure: tuple,
+                 block_size: int, device):
+        from garage_tpu_torch.net import LocalNetwork
+
+        self.root, self.n, self.rf = root, n, rf
+        self.erasure, self.block_size, self.device = erasure, block_size, device
+        self.net = LocalNetwork()
+        self.garages: list = []
+        self.tasks: list = []
+        self.alive: list = []
+
+    def _config(self, i: int):
+        from garage_tpu_torch.utils.config import Config, DataDir, QosConfig
+
+        d = os.path.join(self.root, f"node{i:02d}")
+        return Config(metadata_dir=os.path.join(d, "meta"),
+                      data_dir=[DataDir(path=os.path.join(d, "data"))],
+                      db_engine="memory", replication_factor=self.rf,
+                      erasure_coding="%d,%d" % self.erasure,
+                      block_size=self.block_size,
+                      # reads measure the store path: no RAM block
+                      # caches, node-local or cluster-wide
+                      block_read_cache_max_bytes=0,
+                      block_cache_packed_max_bytes=0,
+                      block_cache_tier=False,
+                      qos=QosConfig(governor=False))
+
+    async def start(self) -> None:
+        from garage_tpu_torch.model.garage import Garage
+        from garage_tpu_torch.rpc.layout import NodeRole
+
+        for i in range(self.n):
+            g = Garage(self._config(i), local_net=self.net,
+                       status_interval=1.0, ping_interval=2.0,
+                       device=self.device)
+            self.garages.append(g)
+            self.tasks.append(asyncio.create_task(g.run()))
+            self.alive.append(True)
+        g0 = self.garages[0]
+        for g in self.garages[1:]:
+            await g.netapp.try_connect(g0.netapp.public_addr, g0.system.id)
+            g.system.peering.add_peer(g0.netapp.public_addr, g0.system.id)
+        await self._wait(lambda: all(len(g.netapp.conns) == self.n - 1
+                                     for g in self.garages), 60, "mesh")
+        lm = g0.system.layout_manager
+        for g in self.garages:
+            lm.history.stage_role(g.system.id,
+                                  NodeRole(zone="dc1", capacity=1 << 40))
+        lm.apply_staged(None)
+        await self._wait(lambda: all(
+            g.system.layout_manager.history.current().version == 1
+            for g in self.garages), 60, "layout v1")
+
+    async def _wait(self, cond, timeout: float, what: str) -> None:
+        deadline = time.monotonic() + timeout
+        while not cond():
+            check(time.monotonic() < deadline, f"cluster: timeout ({what})")
+            await asyncio.sleep(0.05)
+
+    async def stop_node(self, i: int) -> None:
+        """A node goes away: its transport first, then its Garage."""
+        g = self.garages[i]
+        self.alive[i] = False
+        self.net.nodes.pop(g.system.id, None)
+        await g.netapp.shutdown()
+        await g.stop()
+        self.tasks[i].cancel()
+        await asyncio.gather(self.tasks[i], return_exceptions=True)
+
+    async def stop(self) -> None:
+        live = [i for i in range(self.n) if self.alive[i]]
+        for i in live:
+            await self.garages[i].netapp.shutdown()
+        for i in live:
+            await self.garages[i].stop()
+        for t in self.tasks:
+            t.cancel()
+        await asyncio.gather(*self.tasks, return_exceptions=True)
+
+
+def device_busy(prof, path: str) -> dict:
+    """Device time in a profiler window, from its trace: the union of
+    the card's kernel, copy and memset intervals (busy_s), their sums by
+    kind, and kernel seconds by name."""
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and e.get("cat") in
+                  ("kernel", "gpu_memcpy", "gpu_memset")]
+    os.unlink(path)
+    busy, end = 0.0, float("-inf")
+    by_cat: dict = {}
+    by_kernel: dict = {}
+    for e in sorted(events, key=lambda e: e["ts"]):
+        t0, t1 = float(e["ts"]), float(e["ts"]) + float(e["dur"])
+        busy += max(0.0, t1 - max(t0, end))
+        end = max(end, t1)
+        by_cat[e["cat"]] = by_cat.get(e["cat"], 0.0) + float(e["dur"]) / 1e6
+        if e["cat"] == "kernel":
+            name = e["name"].split("(")[0]
+            by_kernel[name] = by_kernel.get(name, 0.0) + float(e["dur"]) / 1e6
+    return {"events": len(events), "busy_s": busy / 1e6, "by_cat": by_cat,
+            "by_kernel": by_kernel}
+
+
+async def s3_phase(data: np.ndarray, root: str, dev, *, nodes: int = 14,
+                   rf: int = S3_RF, erasure: tuple = (K, M),
+                   block_size: int = BLOCK, n_objects: int = S3_OBJECTS,
+                   obj_size: int = S3_OBJ_SIZE, chunk: int = S3_CHUNK,
+                   n_unsigned: int = S3_UNSIGNED, n_degraded: int = 16,
+                   clients: int = S3_CLIENTS) -> dict:
+    """PUT `n_objects` objects as signed aws-chunked bodies, `clients`
+    more the same way under the profiler, and `n_unsigned` more with
+    UNSIGNED-PAYLOAD through node 0's S3 front end, GET all of them back, stop m nodes and GET `n_degraded` again;
+    every body and ETag is checked. -> rates and counters."""
+    import concurrent.futures
+    import socket
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from s3util import S3Client
+
+    from garage_tpu_torch.admin.rpc import AdminRpcHandler
+    from garage_tpu_torch.api.s3.api_server import S3ApiServer
+
+    check(len(data) >= (n_objects + n_unsigned) * obj_size,
+          "s3 phase: not enough seeded data")
+    objs = [data[i * obj_size:(i + 1) * obj_size]
+            for i in range(n_objects + n_unsigned)]
+    # the profiled window's objects: the first ones rotated by a byte,
+    # so that none of their blocks is stored already
+    traced = range(len(objs), len(objs) + clients)
+    objs += [np.roll(objs[i], 1) for i in range(clients)]
+    etags = [hashlib.md5(o).hexdigest() for o in objs]
+    cluster = PortCluster(root, nodes, rf, erasure, block_size, dev)
+    out = {}
+    loop = asyncio.get_running_loop()
+    pool = concurrent.futures.ThreadPoolExecutor(clients)
+    s3 = None
+    try:
+        t0 = time.perf_counter()
+        await cluster.start()
+        g0 = cluster.garages[0]
+        admin = AdminRpcHandler(g0)
+        key = await admin.op_key_new({"name": "chip-smoke"})
+        await admin.op_key_allow({"key": key["key_id"],
+                                  "create_bucket": True})
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        s3 = S3ApiServer(g0)
+        await s3.start("127.0.0.1", port)
+        client = S3Client("127.0.0.1", port, key["key_id"],
+                          key["secret_key"])
+        st, _, body = await loop.run_in_executor(
+            pool, lambda: client.request("PUT", "/smoke"))
+        check(st == 200, f"CreateBucket: {st} {body[:200]!r}")
+        out["boot_s"] = time.perf_counter() - t0
+
+        def put_signed(i: int) -> None:
+            o = objs[i]
+            chunks = [o[j:j + chunk].tobytes()
+                      for j in range(0, len(o), chunk)]
+            st, hdr, body = client.put_chunked(f"/smoke/o{i:04d}", chunks)
+            check(st == 200, f"signed PUT o{i}: {st} {body[:300]!r}")
+            check(hdr.get("etag", "").strip('"') == etags[i],
+                  f"ETag of o{i}: {hdr.get('etag')} != {etags[i]}")
+
+        def put_unsigned(i: int) -> None:
+            st, hdr, body = client.request(
+                "PUT", f"/smoke/o{i:04d}", body=objs[i].tobytes(),
+                unsigned_payload=True, timeout=120)
+            check(st == 200, f"unsigned PUT o{i}: {st} {body[:300]!r}")
+            check(hdr.get("etag", "").strip('"') == etags[i],
+                  f"ETag of o{i}: {hdr.get('etag')} != {etags[i]}")
+
+        def get(i: int) -> None:
+            st, hdr, body = client.request("GET", f"/smoke/o{i:04d}",
+                                           timeout=120)
+            check(st == 200, f"GET o{i}: {st} {body[:300]!r}")
+            check(body == objs[i].tobytes(), f"GET o{i}: bytes differ")
+            check(hdr.get("etag", "").strip('"') == etags[i],
+                  f"GET o{i}: ETag {hdr.get('etag')} != {etags[i]}")
+
+        async def run(fn, idx) -> float:
+            t = time.perf_counter()
+            await asyncio.gather(*(loop.run_in_executor(pool, fn, i)
+                                   for i in idx))
+            return time.perf_counter() - t
+
+        feeder = g0.block_manager.feeder
+        out["put_s"] = await run(put_signed, range(n_objects))
+        out["pipeline_signed"] = feeder.pipeline_stats()
+        sha_items = out["pipeline_signed"]["op_items"].get("sha256", 0)
+        # a steady window under the profiler: each client PUTs one more
+        # object, signed
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out["put_traced_s"] = await run(put_signed, traced)
+        out["busy_traced"] = device_busy(prof, os.path.join(root, "trace"))
+        out["put_unsigned_s"] = await run(
+            put_unsigned, range(n_objects, n_objects + n_unsigned))
+        out["get_s"] = await run(get, range(len(objs)))
+        # m nodes go away (never node 0, which serves S3): every block
+        # now misses the shards they held
+        down = list(range(nodes - erasure[1], nodes))
+        for i in down:
+            await cluster.stop_node(i)
+        dec0 = feeder.stats["decode_device_items"]
+        out["get_degraded_s"] = await run(get, range(n_degraded))
+        out["degraded_decodes"] = feeder.stats["decode_device_items"] - dec0
+        out["sha256_items"] = sha_items
+        out["chunks_sent"] = n_objects * (-(-obj_size // chunk))
+        out["stats"] = dict(feeder.stats)
+        out["pipeline"] = feeder.pipeline_stats()
+        out["fallbacks_all_nodes"] = sum(
+            g.block_manager.feeder.stats["device_fallbacks"]
+            for g in cluster.garages)
+        out["bytes"] = {"put": n_objects * obj_size,
+                        "put_unsigned": n_unsigned * obj_size,
+                        "put_traced": clients * obj_size,
+                        "get": len(objs) * obj_size,
+                        "get_degraded": n_degraded * obj_size}
+        return out
+    finally:
+        if s3 is not None:
+            await s3.stop()
+        await cluster.stop()
+        pool.shutdown(wait=True)
+
+
+def max_sm_clock_hz() -> float:
+    """The card's top SM clock, as nvidia-smi reports it (MHz)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60).stdout.split()
+    check(bool(out) and out[0].isdigit(),
+          f"nvidia-smi clocks.max.sm printed {out!r}")
+    print(f"max SM clock {out[0]} MHz (nvidia-smi clocks.max.sm)")
+    return int(out[0]) * 1e6
 
 
 def main() -> int:
@@ -436,23 +792,32 @@ def main() -> int:
             print(f"  ptxas {name}: {line}")
 
     rng = np.random.default_rng(SEED)
-    data = np.frombuffer(bytearray(rng.bytes(N_BLOCKS * BLOCK)),
-                         dtype=np.uint8)
+    data = np.frombuffer(bytearray(rng.bytes(max(
+        N_BLOCKS * BLOCK, (S3_OBJECTS + S3_UNSIGNED) * S3_OBJ_SIZE))),
+        dtype=np.uint8)
 
     dev = torch.device("cuda", 0)
-    kres = kernel_phase(torch, data, rng, dev)
+    kres = kernel_phase(torch, data, rng, dev, max_sm_clock_hz())
     for name, r in kres.items():
         print(f"kernel {name} {r['shape']}: ok, {r['ms']:.4f} ms "
               f"({r['gbps']:.1f} GB/s), bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']})"
               + (f", plain {r['plain_ms']:.2f} ms" if "plain_ms" in r
-                 else ""))
+                 else "")
+              + (f", serial floor {r['serial_ms']:.4f} ms, all-lanes "
+                 f"{r['ops'] / LANE_OPS_PER_S * 1e3:.5f} ms, host hashlib "
+                 f"{r['hashlib_ms']:.3f} ms" if "serial_ms" in r else ""))
 
     root = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
+        # each path runs with every launch count set to 0 just before it
         reset_launches()
-        rates = asyncio.run(main_path(data, root, rng, dev))
+        rates = asyncio.run(main_path(data, os.path.join(root, "block"),
+                                      rng, dev))
         launches = kernel_launches()
+        reset_launches()
+        s3 = asyncio.run(s3_phase(data, os.path.join(root, "s3"), dev))
+        s3_launches = kernel_launches()
     finally:
         shutil.rmtree(root, ignore_errors=True)
     stats = rates["stats"]
@@ -470,14 +835,65 @@ def main() -> int:
           "items={items} batches={batches} "
           "max_batch={max_batch}".format(**stats))
     print(f"pipeline: {json.dumps(rates['pipeline'])}")
-    print(f"launches on the main path: {json.dumps(launches)}")
+    print(f"launches on the block path: {json.dumps(launches)}")
     check(stats["device_fallbacks"] == 0, "device fallbacks on the main path")
     check(stats["device_items"] == stats["items"],
           "a main-path request did not run on the device")
     check(stats["device_items"] > 0 and stats["decode_device_items"] > 0,
           "the main path did not reach the device")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+    for name in ("gf_apply", "gf_check", "blake3_rows"):
+        check(launches[name] > 0,
+              f"kernel {name} was not launched on the block path")
+
+    b = s3["bytes"]
+    print(f"S3 phase: 14-node erasure(10,4) port cluster booted in "
+          f"{s3['boot_s']:.2f} s; {S3_CLIENTS} client threads")
+    print(f"S3 PUT signed aws-chunked ({S3_OBJECTS} x {S3_OBJ_SIZE >> 20} "
+          f"MiB, {S3_CHUNK >> 10} KiB chunks): "
+          f"{b['put'] / s3['put_s'] / 1e9:.3f} GB/s ({s3['put_s']:.2f} s)")
+    bt = s3["busy_traced"]
+    if bt["events"]:
+        print(f"S3 signed PUT, profiled window ({S3_CLIENTS} x "
+              f"{S3_OBJ_SIZE >> 20} MiB more): {s3['put_traced_s']:.2f} s "
+              f"({b['put_traced'] / s3['put_traced_s'] / 1e9:.3f} GB/s), "
+              f"device busy {bt['busy_s']:.3f} s (idle share "
+              f"{1 - bt['busy_s'] / s3['put_traced_s']:.4f}); by kind "
+              f"{json.dumps(bt['by_cat'])}; kernels "
+              f"{json.dumps(bt['by_kernel'])}")
+    else:
+        print(f"S3 signed PUT, profiled window: {s3['put_traced_s']:.2f} s, "
+              f"device busy not measured (the profiler recorded no device "
+              f"events)")
+    print(f"S3 PUT UNSIGNED-PAYLOAD ({S3_UNSIGNED} x {S3_OBJ_SIZE >> 20} "
+          f"MiB): {b['put_unsigned'] / s3['put_unsigned_s'] / 1e9:.3f} GB/s "
+          f"({s3['put_unsigned_s']:.2f} s)")
+    print(f"S3 GET all {b['get'] // S3_OBJ_SIZE}: "
+          f"{b['get'] / s3['get_s'] / 1e9:.3f} GB/s ({s3['get_s']:.2f} s), "
+          f"bytes and MD5 ETags equal")
+    print(f"S3 GET degraded (4 nodes down, 16 objects): "
+          f"{b['get_degraded'] / s3['get_degraded_s'] / 1e9:.3f} GB/s "
+          f"({s3['get_degraded_s']:.2f} s), {s3['degraded_decodes']} "
+          f"device decodes, bytes and MD5 ETags equal")
+    ratio = s3["sha256_items"] / s3["chunks_sent"]
+    print(f"S3 sha256 device items {s3['sha256_items']} / signed chunks "
+          f"sent {s3['chunks_sent']} = {ratio:.4f}")
+    print("S3 node-0 feeder: device_items={device_items} items={items} "
+          "batches={batches} max_batch={max_batch} decode_device_items="
+          "{decode_device_items} device_fallbacks={device_fallbacks}"
+          .format(**s3["stats"]))
+    print(f"S3 pipeline after the signed PUT round: "
+          f"{json.dumps(s3['pipeline_signed'])}")
+    print(f"S3 pipeline at the end: {json.dumps(s3['pipeline'])}")
+    print(f"launches on the S3 path: {json.dumps(s3_launches)}")
+    check(s3["fallbacks_all_nodes"] == 0, "device fallbacks on the S3 path")
+    check(s3["stats"]["device_items"] == s3["stats"]["items"],
+          "an S3-path request did not run on the device")
+    check(s3["sha256_items"] == s3["chunks_sent"],
+          "a signed chunk that landed whole in a lease missed S2")
+    check(s3["degraded_decodes"] > 0, "degraded GETs decoded nothing")
+    for name in ("sha256_rows", "gf_apply", "blake3_rows"):
+        check(s3_launches[name] > 0,
+              f"kernel {name} was not launched on the S3 path")
 
     meta = {
         "gf_apply": ("garage_tpu_torch/csrc/gf256.cu",
@@ -486,13 +902,16 @@ def main() -> int:
                      "garage_tpu/ops/rs.py:217"),
         "blake3_rows": ("garage_tpu_torch/csrc/blake3.cu",
                         "garage_tpu/ops/treehash.py:205"),
+        "sha256_rows": ("garage_tpu_torch/csrc/sha256.cu",
+                        "garage_tpu/ops/sha256.py:107"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
         r = kres[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces,
+            "launches": launches[name] + s3_launches[name],
             "max_abs_err": r["err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None})

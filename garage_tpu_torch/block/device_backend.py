@@ -10,11 +10,13 @@
 - `TorchDeviceBackend`: the device route, with the same
   stage/compute/readback contract and ops as the JAX package's
   JaxDeviceBackend, on one device. Its kernels are G1/G2
-  (ops/gf_kernel.py) and B3 (ops/treehash.py) on CUDA tensors, their
-  plain torch versions on CPU tensors. Item counts pad up the bucket
-  ladder (PAD_BUCKETS) so the set of launch shapes stays finite; shard lengths pad only to the kernels' 16-byte vector width
-  (no compile is keyed on them, so the power-of-two shard-length bucket
-  of the JAX package would only add padding). Zero padding is safe for
+  (ops/gf_kernel.py), B3 (ops/treehash.py) and S2 (ops/sha256.py) on
+  CUDA tensors, their plain torch versions on CPU tensors. Item counts
+  pad up the bucket ladder (PAD_BUCKETS) so the set of launch shapes
+  stays finite; shard lengths pad only to the kernels' 16-byte vector
+  width (no compile is keyed on them, so the power-of-two shard-length
+  bucket of the JAX package would only add padding); SHA-256 rows pad
+  to their group's longest message. Zero padding is safe for
   the RS ops (the code is linear); hash pad rows are full-length zero
   messages whose digests are sliced away. Decode/repair ship the
   erasure pattern as DATA: each stripe's coefficient matrix rides with
@@ -72,6 +74,10 @@ def group_bytes(op: str, blobs: list) -> int:
         # (scheme byte + body in one pool buffer, sized total_len)
         return sum(b.total_len if hasattr(b, "total_len") else len(b[1])
                    for b in blobs)
+    if op == "sha256":  # item = one message: a buffer or a span list
+        from ..ops.sha256 import part_len
+
+        return sum(part_len(b) for b in blobs)
     if op == "parity_check":  # item = one stripe (shard list)
         return sum(len(b) for s in blobs for b in s)
     if op == "decode":  # item = (present, shards, plain_len)
@@ -253,7 +259,7 @@ class TorchDeviceBackend:
             elif op in ("decode", "repair"):
                 inner = self._stage_gf(op, blobs)
             elif op == "sha256":
-                raise NotImplementedError("sha256 lane: later slice")
+                inner = self._stage_sha256(blobs)
             else:
                 raise RuntimeError(f"unknown device op {op!r}")
             self._h2d_done()
@@ -284,6 +290,24 @@ class TorchDeviceBackend:
             staged.append((idxs, self._to_device(buf_t),
                            self._to_device(torch.from_numpy(lengths))))
         return (len(datas), staged)
+
+    def _stage_sha256(self, datas: list):
+        """One (B, W) group of SHA-padded rows: W is the longest
+        message's padded length (S2 reads only a row's own blocks and
+        is built once for every width, so no width or item bucket)."""
+        from ..ops import sha256 as sha
+
+        lens = [sha.part_len(d) for d in datas]
+        nbs = np.array([sha.n_blocks_for(n) for n in lens], dtype=np.int32)
+        width = int(nbs.max()) * sha.BLOCK
+        buf_t, buf = self._host((len(datas), width))
+        for row, d in enumerate(datas):
+            # pad_row_into wants the row's padded blocks zeroed
+            buf[row, lens[row]:int(nbs[row]) * sha.BLOCK] = 0
+            sha.pad_row_into(buf[row], d)
+        self.stats["pad_waste_bytes"] += buf.size - sum(lens)
+        return (self._to_device(buf_t),
+                self._to_device(torch.from_numpy(nbs)))
 
     def _stage_rs(self, blocks: list, op: str):
         """(B, k, S) data stripes. Items: plain blocks ("encode"),
@@ -374,7 +398,7 @@ class TorchDeviceBackend:
     # ---- compute: launch the kernels (no host sync) ----------------------
 
     def compute(self, op: str, staged):
-        from ..ops import rs, treehash
+        from ..ops import rs, sha256, treehash
 
         op, blobs, inner = staged
         k, m = (self.codec.k, self.codec.m) if self.codec else (0, 0)
@@ -383,6 +407,8 @@ class TorchDeviceBackend:
                 n, groups = inner
                 out = (n, [(idxs, treehash.hash_rows(buf, lens))
                            for idxs, buf, lens in groups])
+            elif op == "sha256":
+                out = sha256.hash_rows(*inner)
             elif op in ("encode", "encode_put"):
                 blocks, slens, batch_t, dev = inner
                 out = (blocks, slens, batch_t, rs.encode(k, m, dev))
@@ -424,6 +450,8 @@ class TorchDeviceBackend:
 
                 native.md5_update_many(list(blobs))
             return digests
+        if op == "sha256":
+            return [row.tobytes().hex() for row in self._numpy(inner)]
         if op in ("encode", "encode_put"):
             blocks, slens, batch_t, parity = inner
             k, m = self.codec.k, self.codec.m

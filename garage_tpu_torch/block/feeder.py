@@ -5,7 +5,9 @@ S3 ETag MD5 advance), RS encode, degraded-read decode, shard repair,
 scrub verify and parity check — funnels through one queue. A single
 dispatcher drains whatever has accumulated, groups it by operation, and
 issues one batched device call per group through the staged backend
-(block/device_backend.py: the hand-written CUDA kernels G1, G2 and B3).
+(block/device_backend.py: the hand-written CUDA kernels G1, G2, B3 and
+S2). The S3 front end's SigV4 chunk digests ride the same queue
+(`sha256_hex`).
 Under load, concurrent PUTs coalesce into large batches.
 
 Every batch runs on the feeder's device; nothing is ever re-run on the
@@ -17,8 +19,8 @@ with up to three batches in flight, under a watchdog.
 
 Ported from the JAX package's block/feeder.py; what differs: the probe,
 the backend (torch, one device, no mesh), one mode ("require": no host
-routing, calibration or fallback), the content hash fixed to BLAKE3, and
-no SigV4 SHA-256 lane (a later slice).
+routing, calibration or fallback: a lone stream's chunk digest goes to
+the device too), and the content hash fixed to BLAKE3.
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ _INFLIGHT_BATCHES = 3
 # gather window for same-op PUT lanes: each PUT stream keeps at most one
 # of these in flight per block, so lanes only line up if the dispatcher
 # lingers for the other streams' submissions
-_LINGER_OPS = ("hash_md5", "hash", "encode_put")
+_LINGER_OPS = ("hash_md5", "hash", "encode_put", "sha256")
 _LINGER_S = 0.006
 
 
@@ -127,6 +129,8 @@ class DeviceFeeder:
         # the same busy seconds split by op: where the device route's
         # time goes (h2d packing, launch, readback + host finish)
         self._op_busy: dict[str, dict[str, float]] = {}
+        # device items by op (the S3 path reads its sha256 share)
+        self._op_items: dict[str, int] = {}
         self._pl_wall = 0.0
         self._win_open = 0
         self._win_t0 = 0.0
@@ -217,6 +221,14 @@ class DeviceFeeder:
         # a hashlib-backed accumulator (no native library) has no lanes
         md5acc.update(data)
         return await self.hash(data)
+
+    async def sha256_hex(self, data) -> str:
+        """SigV4 chunk-signature SHA-256 (hex) of one message: a buffer
+        or a span list hashed as one. Chunk digests are independent
+        across streams (the signature chain, not the hash, carries
+        continuity), so concurrent PUTs' chunks batch into one S2
+        launch."""
+        return await self._submit("sha256", data)
 
     async def encode(self, packed: bytes) -> list[bytes]:
         """Erasure parts for one packed block (batched)."""
@@ -412,6 +424,7 @@ class DeviceFeeder:
         self.stats["device_batches"] += 1
         self.stats["device_items"] += n
         self.stats["device_bytes"] += total
+        self._op_items[op] = self._op_items.get(op, 0) + n
         if op in ("decode", "repair"):
             self.stats["decode_device_items"] += n
             self.stats["decode_device_bytes"] += total
@@ -487,9 +500,9 @@ class DeviceFeeder:
             self._pl_wall += time.monotonic() - self._win_t0
 
     def pipeline_stats(self) -> dict:
-        """Per-stage busy seconds (in total and by op), the wall-clock
-        union of in-flight windows, and busy/wall (> 1.0 means stages
-        overlapped)."""
+        """Per-stage busy seconds (in total and by op), device items by
+        op, the wall-clock union of in-flight windows, and busy/wall
+        (> 1.0 means stages overlapped)."""
         busy = {k: round(v, 6) for k, v in self._pl_busy.items()}
         wall = self._pl_wall
         if self._win_open > 0:
@@ -498,6 +511,7 @@ class DeviceFeeder:
         return {"busy_s": busy,
                 "op_busy_s": {op: {k: round(v, 6) for k, v in st.items()}
                               for op, st in self._op_busy.items()},
+                "op_items": dict(self._op_items),
                 "wall_s": round(wall, 6),
                 "overlap_efficiency": round(total / wall, 3) if wall > 0
                 else 0.0,

@@ -1,17 +1,18 @@
-"""Native host kernels (C, built on first use, loaded via ctypes).
+"""Copy of garage_tpu/native/__init__.py: import paths rewritten, issue and PR tags dropped.
 
-The port's compute path is PyTorch + hand-written CUDA kernels on the
-GPU; the runtime around it keeps two host jobs in native code: the S3
-ETag MD5 lanes (8 chains in AVX2 lockstep) and CRC32C shard framing.
-Host BLAKE3 and the GF(2^8) matrix product serve as oracles (tests,
-chip_smoke.py) and as `utils.data.blake3sum`. This package's own copy
-of the host library, so the port never imports the JAX package.
+Native host kernels (C, built on first import, loaded via ctypes).
 
-Build: one `cc -O3 -shared` invocation, cached by source hash under
-_build/ (git-ignored). If no toolchain is available, the MD5
-accumulator falls back to hashlib, `blake3sum` to the pure-Python tree
-and the shard CRC to its Python table — slower but identical results.
-Set GARAGE_TPU_NO_NATIVE=1 to force the fallback.
+The framework's compute path is JAX/XLA on the accelerator; the runtime
+around it keeps native-code hot spots on the host: BLAKE3 content
+hashing and GF(2^8) RS math for when blocks are handled one at a time
+(server PUT fallback, shard checksum verify, offline tools). Mirrors the
+reference's use of native code for its data path (the reference is Rust
+end to end; here C serves the same role behind a Python runtime).
+
+Build: one `gcc -O3 -shared` invocation, cached by source hash under
+_build/. If no toolchain is available the callers fall back to the pure
+Python / numpy implementations (ops/treehash.py, ops/gf256.py) — slower
+but identical results. Set GARAGE_TPU_NO_NATIVE=1 to force the fallback.
 """
 
 from __future__ import annotations
@@ -77,13 +78,26 @@ def _build_and_load() -> Optional[ctypes.CDLL]:
     lib.crc32c_update.argtypes = [ctypes.c_uint32, ctypes.c_void_p,
                                   ctypes.c_uint64]
     lib.crc32c_update.restype = ctypes.c_uint32
+    lib.crc64nvme_update.argtypes = [ctypes.c_uint64, ctypes.c_void_p,
+                                     ctypes.c_uint64]
+    lib.crc64nvme_update.restype = ctypes.c_uint64
+    lib.rs_encode_block_packed.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64,
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+    ]
     lib.gt_md5_state_size.restype = ctypes.c_int
     lib.gt_md5_init.argtypes = [ctypes.c_void_p]
     lib.gt_md5_update.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
                                   ctypes.c_uint64]
     lib.gt_md5_final_copy.argtypes = [ctypes.c_void_p, ctypes.c_char_p]
+    lib.gt_b3_md5_block.argtypes = [ctypes.c_char_p, ctypes.c_uint64,
+                                    ctypes.c_void_p, ctypes.c_char_p]
     lib.gt_md5_update_many.argtypes = [
         ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    lib.gt_b3_md5_many.argtypes = [
+        ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_char_p]
     return lib
 
 
@@ -105,6 +119,12 @@ def loaded() -> bool:
     """True if the library is ALREADY built and loaded — never triggers
     a build (callers on latency-sensitive paths gate on this)."""
     return _lib is not None
+
+
+def warm_async() -> None:
+    """Kick the build/load in a daemon thread (server startup)."""
+    threading.Thread(target=available, daemon=True,
+                     name="native-build").start()
 
 
 def _as_cdata(data):
@@ -158,11 +178,12 @@ def blake3_many(blobs: list[bytes]) -> list[bytes]:
 
 
 class Md5:
-    """Streaming MD5 (S3 ETag chain) whose native state can advance in
-    lockstep with other objects' (md5_update_many). Falls back to
-    hashlib when the native library is absent (`fused` is then False);
-    duck-types the hashlib surface the PUT path uses
-    (update/hexdigest)."""
+    """Streaming MD5 (S3 ETag chain) that can FUSE with the BLAKE3
+    content hash: update_with_blake3() advances the MD5 state and
+    returns the block's blake3 digest from ONE interleaved native pass
+    (the PUT path otherwise walks every block twice). Falls back to
+    hashlib when the native library is absent; duck-types the hashlib
+    surface the PUT path uses (update/hexdigest)."""
 
     __slots__ = ("_st", "_h")
 
@@ -186,6 +207,16 @@ class Md5:
         else:
             c = _as_cdata(data)
             _lib.gt_md5_update(self._st, c, len(c))
+
+    def update_with_blake3(self, data) -> bytes:
+        """MD5-advance by `data` AND return blake3(data), single pass.
+        Only valid when `fused` is True. Accepts bytes or a buffer
+        view (the zero-copy PUT path hashes the leased buffer in
+        place)."""
+        out = ctypes.create_string_buffer(32)
+        c = _as_cdata(data)
+        _lib.gt_b3_md5_block(c, len(c), self._st, out)
+        return out.raw
 
     def hexdigest(self) -> str:
         if self._h is not None:
@@ -222,6 +253,18 @@ def md5_update_many(items: list[tuple["Md5", bytes]]) -> None:
     del keep
 
 
+def b3_md5_many(items: list[tuple["Md5", bytes]]) -> list[bytes]:
+    """Batched fused op: advance each accumulator (8-way across items)
+    AND return each item's blake3 content hash."""
+    if not items:
+        return []
+    n, ps, lens, sts, keep = _md5_batch_args(items)
+    out = ctypes.create_string_buffer(32 * n)
+    _lib.gt_b3_md5_many(n, ps, lens, sts, out)
+    del keep
+    return [out.raw[32 * i:32 * (i + 1)] for i in range(n)]
+
+
 def _make_crc_table(poly: int, width: int) -> list:
     mask = (1 << width) - 1
     table = []
@@ -234,6 +277,7 @@ def _make_crc_table(poly: int, width: int) -> list:
 
 
 _CRC32C_TABLE = _make_crc_table(0x82F63B78, 32)
+_CRC64NVME_TABLE = _make_crc_table(0x9A6C9329AC4BC9B5, 64)
 
 
 def crc32c_py(data: bytes, crc: int = 0) -> int:
@@ -242,6 +286,13 @@ def crc32c_py(data: bytes, crc: int = 0) -> int:
     for b in data:
         crc = (crc >> 8) ^ _CRC32C_TABLE[(crc ^ b) & 0xFF]
     return crc ^ 0xFFFFFFFF
+
+
+def crc64nvme_py(data: bytes, crc: int = 0) -> int:
+    crc ^= 0xFFFFFFFFFFFFFFFF
+    for b in data:
+        crc = (crc >> 8) ^ _CRC64NVME_TABLE[(crc ^ b) & 0xFF]
+    return crc ^ 0xFFFFFFFFFFFFFFFF
 
 
 def crc32c(data, crc: int = 0) -> int:
@@ -255,6 +306,45 @@ def crc32c(data, crc: int = 0) -> int:
     a = np.frombuffer(data, dtype=np.uint8)
     return lib.crc32c_update(crc, a.ctypes.data if len(a) else None,
                              len(a))
+
+
+def crc64nvme(data, crc: int = 0) -> int:
+    """Accepts bytes OR any buffer (same contract as crc32c)."""
+    lib = _get()
+    if lib is None:
+        raise RuntimeError("native library unavailable")
+    if isinstance(data, (bytes, bytearray)):
+        return lib.crc64nvme_update(crc, data, len(data))
+    a = np.frombuffer(data, dtype=np.uint8)
+    return lib.crc64nvme_update(crc, a.ctypes.data if len(a) else None,
+                                len(a))
+
+
+SHARD_HDR_LEN = 16  # [magic 4][block_len u64 BE][crc32c u32 BE]
+
+
+def rs_encode_packed(block: bytes, k: int, m: int, pmat: np.ndarray,
+                     prefix: bytes = b"") -> list[memoryview]:
+    """One GIL-released call: split the logical stream prefix||block into
+    k shards, compute m parity shards (pmat = (m, k) GF(2^8) parity
+    matrix), and return the k+m ready-to-send shard payloads in the
+    block store's shard file format (crc32c flavor) as zero-copy views
+    over one buffer. `prefix` carries the tiny DataBlock header so the
+    caller never concatenates it onto the megabyte payload."""
+    lib = _get()
+    if lib is None:
+        raise RuntimeError("native library unavailable")
+    cblock = _as_cdata(block)
+    total = len(prefix) + len(cblock)
+    shard_len = (total + k - 1) // k
+    stride = SHARD_HDR_LEN + shard_len
+    pmat = np.ascontiguousarray(pmat, dtype=np.uint8)
+    out = np.empty((k + m) * stride, dtype=np.uint8)
+    lib.rs_encode_block_packed(prefix, len(prefix), cblock, len(cblock),
+                               k, m, pmat.ctypes.data, shard_len,
+                               out.ctypes.data)
+    view = memoryview(out.data).cast("B")
+    return [view[i * stride:(i + 1) * stride] for i in range(k + m)]
 
 
 def gf_matmul(mat: np.ndarray, x: np.ndarray) -> np.ndarray:

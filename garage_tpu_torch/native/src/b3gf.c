@@ -1,14 +1,11 @@
 /* Native host kernels for the block data path: BLAKE3 hashing and
  * GF(2^8) matrix application (Reed-Solomon encode/decode).
  *
- * Role: the CPU-side twin of the GPU data plane (ops/treehash.py,
- * ops/gf_kernel.py). The GPU path batches whole stripes through the
- * CUDA kernels in csrc/; this library serves the host-resident cases —
- * the S3 ETag MD5 lanes, shard checksums (CRC32C), single-block hashing
- * when no device is attached, and the host oracles the kernels are
- * held against — at native speed instead of pure Python. The source is
- * byte-for-byte the same algorithm set as the JAX package's library, so
- * shard files and digests written by either package are identical.
+ * Role: the CPU-side twin of the TPU data plane (ops/treehash.py,
+ * ops/gf256.py). The TPU path batches whole stripes through XLA; this
+ * library serves the host-resident cases — single-block hashing on the
+ * PUT path when no accelerator is attached, shard checksum verification,
+ * and RS fallback math — at native speed instead of pure Python.
  *
  * BLAKE3 is implemented from the public spec (portable, no SIMD
  * intrinsics; gcc auto-vectorizes the compression rounds well enough
@@ -378,9 +375,11 @@ void b3_hash_many(const uint8_t *data, int64_t n, const int64_t *offs,
 
 /* ================= MD5 (RFC 1321) ================= */
 /* S3 ETags are MD5, so the PUT path pays a serial MD5 over every byte
- * of an object. Streaming state lives in a caller-owned struct so the
- * chain threads across blocks of the object; gt_md5_update_many
- * advances up to 8 objects' chains in AVX2 lockstep. */
+ * on top of the BLAKE3 content hash. gt_b3_md5_block below runs both
+ * digests in ONE interleaved pass (r5: the two separate walks over a
+ * 1 MiB block were the single largest CPU cost on the S3 PUT path of
+ * a one-core node). Streaming state lives in a caller-owned struct so
+ * the chain threads across blocks of the object. */
 
 typedef struct {
     uint32_t h[4];
@@ -674,6 +673,116 @@ void gt_md5_update_many(int64_t n, const uint8_t **ps,
         gt_md5_update(sts[i], ps[i], (uint64_t)lens[i]);
 }
 
+/* Batched fused op for the feeder: advance each md5 state (8-way
+ * across items) and write blake3(item) to outs + 32*i. */
+void gt_b3_md5_many(int64_t n, const uint8_t **ps, const int64_t *lens,
+                    gt_md5 **sts, uint8_t *outs) {
+    gt_md5_update_many(n, ps, lens, sts);
+    for (int64_t i = 0; i < n; i++)
+        b3_hash(ps[i], (uint64_t)lens[i], outs + 32 * i);
+}
+
+/* ---- fused BLAKE3 + MD5, one pass over the block ---- */
+
+/* Spec-tree reduction over an array of chunk CVs (left subtree = the
+ * largest power of two strictly below n). Segments are disjoint, so
+ * the 8-way level loop may reduce power-of-two runs in place. */
+static void cv_tree_reduce(uint32_t (*cvs)[8], uint64_t n, int root,
+                           uint32_t out[8]) {
+    if (n == 1) {
+        memcpy(out, cvs[0], 32);
+        return;
+    }
+#ifdef GT_X86
+    if (cpu_avx2 > 0 && !root && n >= 16 && (n & (n - 1)) == 0) {
+        uint64_t w = n;
+        while (w > 1) {
+            uint64_t half = w / 2, i = 0;
+            for (; i + 8 <= half; i += 8)
+                parents8_cv((const uint32_t(*)[8]) & cvs[2 * i], &cvs[i]);
+            for (; i < half; i++)
+                parent_cv(cvs[2 * i], cvs[2 * i + 1], 0, cvs[i]);
+            w = half;
+        }
+        memcpy(out, cvs[0], 32);
+        return;
+    }
+#endif
+    uint64_t left = 1;
+    while (left * 2 < n)
+        left *= 2;
+    uint32_t l[8], r[8];
+    cv_tree_reduce(cvs, left, 0, l);
+    cv_tree_reduce(cvs + left, n - left, 0, r);
+    parent_cv(l, r, root, out);
+}
+
+/* BLAKE3 digest of data[0..len) AND md5-advance `st` by the same
+ * bytes, interleaved in 16 KiB windows so both digests read each
+ * window while it is cache-resident: one RAM traversal instead of
+ * two. Returns the blake3 digest in out32. */
+void gt_b3_md5_block(const uint8_t *data, uint64_t len, gt_md5 *st,
+                     uint8_t out32[32]) {
+    uint64_t nchunks = len == 0 ? 1 : (len + CHUNK_LEN - 1) / CHUNK_LEN;
+    if (nchunks == 1) {
+        gt_md5_update(st, data, len);
+        uint32_t cv[8];
+        chunk_cv(data, (size_t)len, 0, 1, cv);
+        for (int i = 0; i < 8; i++) {
+            out32[4 * i] = (uint8_t)cv[i];
+            out32[4 * i + 1] = (uint8_t)(cv[i] >> 8);
+            out32[4 * i + 2] = (uint8_t)(cv[i] >> 16);
+            out32[4 * i + 3] = (uint8_t)(cv[i] >> 24);
+        }
+        return;
+    }
+    uint32_t (*cvs)[8] = malloc(sizeof(uint32_t[8]) * (size_t)nchunks);
+    if (!cvs) { /* degraded two-pass path */
+        gt_md5_update(st, data, len);
+        b3_hash(data, len, out32);
+        return;
+    }
+#ifdef GT_X86
+    if (cpu_avx2 < 0)
+        cpu_avx2 = __builtin_cpu_supports("avx2") ? 1 : 0;
+#endif
+    uint64_t full = len / CHUNK_LEN;       /* # full 1 KiB chunks */
+    uint64_t c = 0;
+    const uint64_t WIN = 16;               /* chunks per window, 16 KiB */
+    while (c < full) {
+        uint64_t end = c + WIN < full ? c + WIN : full;
+        gt_md5_update(st, data + c * CHUNK_LEN, (end - c) * CHUNK_LEN);
+        uint64_t i = c;
+#ifdef GT_X86
+        if (cpu_avx2 > 0)
+            for (; i + 8 <= end && i + 8 <= 0xFFFFFFFFu; i += 8) {
+                const uint8_t *p[8];
+                for (int l8 = 0; l8 < 8; l8++)
+                    p[l8] = data + (size_t)(i + l8) * CHUNK_LEN;
+                chunks8_cv(p, i, &cvs[i]);
+            }
+#endif
+        for (; i < end; i++)
+            chunk_cv(data + (size_t)i * CHUNK_LEN, CHUNK_LEN, i, 0,
+                     cvs[i]);
+        c = end;
+    }
+    if (nchunks > full) {                  /* partial tail chunk */
+        gt_md5_update(st, data + full * CHUNK_LEN, len - full * CHUNK_LEN);
+        chunk_cv(data + (size_t)full * CHUNK_LEN,
+                 (size_t)(len - full * CHUNK_LEN), full, 0, cvs[full]);
+    }
+    uint32_t cv[8];
+    cv_tree_reduce(cvs, nchunks, 1, cv);
+    free(cvs);
+    for (int i = 0; i < 8; i++) {
+        out32[4 * i] = (uint8_t)cv[i];
+        out32[4 * i + 1] = (uint8_t)(cv[i] >> 8);
+        out32[4 * i + 2] = (uint8_t)(cv[i] >> 16);
+        out32[4 * i + 3] = (uint8_t)(cv[i] >> 24);
+    }
+}
+
 /* ================= GF(2^8), poly 0x11D ================= */
 
 static uint8_t GFMUL[256][256];
@@ -702,25 +811,34 @@ static void gf_init(void) {
     gf_ready = 1;
 }
 
-/* ================= reflected CRC32C (slice-by-8) =================
- * crc32c (Castagnoli, poly 0x82F63B78 reflected): the shard file
- * checksum. */
+/* ================= reflected CRCs (slice-by-8) =================
+ * crc32c (Castagnoli, poly 0x82F63B78 reflected) and CRC-64/NVME
+ * (poly 0x9A6C9329AC4BC9B5 reflected) for the S3 x-amz-checksum-*
+ * framework (ref: src/api/common/signature/checksum.rs). */
 
 static uint32_t C32C_T[8][256];
+static uint64_t C64_T[8][256];
 static int crc_ready = 0;
 
 static void crc_init(void) {
     for (int i = 0; i < 256; i++) {
         uint32_t c = (uint32_t)i;
-        for (int k = 0; k < 8; k++)
+        uint64_t d = (uint64_t)i;
+        for (int k = 0; k < 8; k++) {
             c = (c & 1) ? (c >> 1) ^ 0x82F63B78u : c >> 1;
+            d = (d & 1) ? (d >> 1) ^ 0x9A6C9329AC4BC9B5ull : d >> 1;
+        }
         C32C_T[0][i] = c;
+        C64_T[0][i] = d;
     }
     for (int i = 0; i < 256; i++) {
         uint32_t c = C32C_T[0][i];
+        uint64_t d = C64_T[0][i];
         for (int s = 1; s < 8; s++) {
             c = C32C_T[0][c & 0xFF] ^ (c >> 8);
+            d = C64_T[0][d & 0xFF] ^ (d >> 8);
             C32C_T[s][i] = c;
+            C64_T[s][i] = d;
         }
     }
     crc_ready = 1;
@@ -770,6 +888,26 @@ uint32_t crc32c_update(uint32_t crc, const uint8_t *p, uint64_t len) {
     }
     while (len--)
         crc = C32C_T[0][(crc ^ *p++) & 0xFF] ^ (crc >> 8);
+    return ~crc;
+}
+
+uint64_t crc64nvme_update(uint64_t crc, const uint8_t *p, uint64_t len) {
+    if (!crc_ready)
+        crc_init();
+    crc = ~crc;
+    while (len >= 8) {
+        uint64_t w;
+        memcpy(&w, p, 8);
+        w ^= crc;
+        crc = C64_T[7][w & 0xFF] ^ C64_T[6][(w >> 8) & 0xFF] ^
+              C64_T[5][(w >> 16) & 0xFF] ^ C64_T[4][(w >> 24) & 0xFF] ^
+              C64_T[3][(w >> 32) & 0xFF] ^ C64_T[2][(w >> 40) & 0xFF] ^
+              C64_T[1][(w >> 48) & 0xFF] ^ C64_T[0][(w >> 56) & 0xFF];
+        p += 8;
+        len -= 8;
+    }
+    while (len--)
+        crc = C64_T[0][(crc ^ *p++) & 0xFF] ^ (crc >> 8);
     return ~crc;
 }
 
@@ -883,5 +1021,82 @@ void gf256_matmul(const uint8_t *mat, int64_t r, int64_t s,
         memset(o, 0, (size_t)n);
         for (int64_t j = 0; j < s; j++)
             gf_axpy(mat[i * s + j], x + j * n, o, n);
+    }
+}
+
+/* ================= one-call packed RS encode =================
+ * The PUT hot path: split `block` (block_len bytes) into k shards of
+ * shard_len (zero-padded tail), compute m parity shards with pmat
+ * (m x k, row-major), and emit k+m ready-to-send shard payloads at
+ * out + i*(16 + shard_len), each framed as the block store's shard
+ * file format (block/manager.py pack_shard, crc32c flavor):
+ *   [magic "GTS2"][block_len u64 BE][crc32c u32 BE][shard bytes]
+ * One GIL-released call replaces split_stripe + gf_matmul + per-shard
+ * pack_shard/crc (VERDICT r3 task 1: the kernel<->system gap). */
+void rs_encode_block_packed(const uint8_t *pfx, int64_t pfx_len,
+                            const uint8_t *block, int64_t data_len,
+                            int64_t k, int64_t m, const uint8_t *pmat,
+                            int64_t shard_len, uint8_t *out) {
+    const int64_t stride = 16 + shard_len;
+    const int64_t block_len = pfx_len + data_len;
+    /* data shards: copy straight from the logical stream pfx||block,
+     * zero-padding the tail (pfx is the 1-byte DataBlock header — taking
+     * it separately saves the caller a full-block concat copy) */
+    for (int64_t i = 0; i < k; i++) {
+        uint8_t *dst = out + i * stride + 16;
+        int64_t off = i * shard_len;
+        int64_t want = shard_len;
+        if (off < pfx_len) {
+            int64_t n = pfx_len - off < want ? pfx_len - off : want;
+            memcpy(dst, pfx + off, (size_t)n);
+            dst += n;
+            off += n;
+            want -= n;
+        }
+        if (want > 0) {
+            int64_t doff = off - pfx_len;
+            int64_t have = data_len - doff;
+            if (have > want)
+                have = want;
+            if (have > 0) {
+                memcpy(dst, block + doff, (size_t)have);
+                dst += have;
+                want -= have;
+            }
+            if (want > 0)
+                memset(dst, 0, (size_t)want);
+        }
+    }
+    /* parity shards from the in-place data shards (tiled: each data
+     * tile read once, all m parity tiles cache-resident) */
+    if (!nib_ready)
+        nib_init();
+    if (k <= GF_MAXROWS && m <= GF_MAXROWS) {
+        const uint8_t *xr[GF_MAXROWS];
+        uint8_t *or_[GF_MAXROWS];
+        for (int64_t j = 0; j < k; j++)
+            xr[j] = out + j * stride + 16;
+        for (int64_t i = 0; i < m; i++)
+            or_[i] = out + (k + i) * stride + 16;
+        gf_matmul_tiled(pmat, m, k, xr, or_, shard_len);
+    } else {
+        for (int64_t i = 0; i < m; i++) {
+            uint8_t *o = out + (k + i) * stride + 16;
+            memset(o, 0, (size_t)shard_len);
+            for (int64_t j = 0; j < k; j++)
+                gf_axpy(pmat[i * k + j], out + j * stride + 16, o,
+                        shard_len);
+        }
+    }
+    /* headers */
+    for (int64_t i = 0; i < k + m; i++) {
+        uint8_t *h = out + i * stride;
+        h[0] = 'G'; h[1] = 'T'; h[2] = 'S'; h[3] = '2';
+        uint64_t bl = (uint64_t)block_len;
+        for (int b = 0; b < 8; b++)
+            h[4 + b] = (uint8_t)(bl >> (56 - 8 * b));
+        uint32_t ck = crc32c_update(0, h + 16, (uint64_t)shard_len);
+        h[12] = (uint8_t)(ck >> 24); h[13] = (uint8_t)(ck >> 16);
+        h[14] = (uint8_t)(ck >> 8); h[15] = (uint8_t)ck;
     }
 }

@@ -8,6 +8,8 @@
                csrc/gf256.cu
   treehash.py  BLAKE3: pure-Python oracle, plain torch batch, and the
                wrapper of kernel B3 (blake3_rows), csrc/blake3.cu
+  sha256.py    SHA-256: host padding helpers, plain torch batch, and the
+               wrapper of kernel S2 (sha256_rows), csrc/sha256.cu
   _build.py    nvcc build + ctypes load of csrc/*.cu
 """
 
@@ -16,14 +18,14 @@ from __future__ import annotations
 
 def kernel_launches() -> dict[str, int]:
     """Launch count of every kernel wrapper, by kernel name."""
-    from . import gf_kernel, treehash
+    from . import gf_kernel, sha256, treehash
 
-    return {**gf_kernel.launches, **treehash.launches}
+    return {**gf_kernel.launches, **treehash.launches, **sha256.launches}
 
 
 def reset_launches() -> None:
-    from . import gf_kernel, treehash
+    from . import gf_kernel, sha256, treehash
 
-    for counts in (gf_kernel.launches, treehash.launches):
+    for counts in (gf_kernel.launches, treehash.launches, sha256.launches):
         for name in counts:
             counts[name] = 0

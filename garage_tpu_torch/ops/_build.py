@@ -25,7 +25,7 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("gf256", "blake3")
+SOURCES = ("gf256", "blake3", "sha256")
 ARCH = "arch=compute_90a,code=sm_90a"
 FLAGS = ("-gencode", ARCH, "-std=c++17", "-O3", "-shared",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -1,15 +1,17 @@
-"""The port's CUDA kernels (G1 gf_apply, G2 gf_check, B3 blake3_rows)
-against their plain torch versions and the numpy/Python oracles, on
+"""The port's CUDA kernels (G1 gf_apply, G2 gf_check, B3 blake3_rows,
+S2 sha256_rows) against their plain torch versions and the numpy/Python oracles, on
 the card. Skipped where there is no CUDA device; run on a GPU machine
 with `python -m pytest tests/test_torch_cuda.py -m cuda`."""
 
 from __future__ import annotations
 
+import hashlib
+
 import numpy as np
 import pytest
 import torch
 
-from garage_tpu_torch.ops import gf_kernel, rs, treehash
+from garage_tpu_torch.ops import gf_kernel, rs, sha256, treehash
 
 pytestmark = pytest.mark.cuda
 
@@ -75,3 +77,24 @@ def test_blake3_rows_matches_oracle(dev, lengths):
         if n <= 4096:  # the pure-Python oracle, where it is quick
             assert got[i].tobytes() == treehash.blake3_py(
                 msgs[i, :n].tobytes())
+
+
+@pytest.mark.parametrize("lengths", [[0, 1, 55, 56, 63, 64, 65, 119, 120],
+                                     [8192, 100, 4095],
+                                     [65536] * 3])
+def test_sha256_rows_matches_plain_and_hashlib(dev, lengths):
+    msgs = [_data(n + 7, n).tobytes() for n in lengths]
+    nbs = np.array([sha256.n_blocks_for(len(m)) for m in msgs], np.int32)
+    rows = np.zeros((len(msgs), int(nbs.max()) * sha256.BLOCK), np.uint8)
+    for i, m in enumerate(msgs):
+        sha256.pad_row_into(rows[i], m)
+    before = sha256.launches["sha256_rows"]
+    got = sha256.hash_rows(torch.from_numpy(rows).to(dev),
+                           torch.from_numpy(nbs).to(dev)).cpu().numpy()
+    assert sha256.launches["sha256_rows"] == before + 1
+    for i, m in enumerate(msgs):
+        assert got[i].tobytes() == hashlib.sha256(m).digest()
+    if max(lengths) <= 8192:  # the plain torch version, where it is quick
+        want = sha256.hash_rows(torch.from_numpy(rows),
+                                torch.from_numpy(nbs)).numpy()
+        assert np.array_equal(got, want)

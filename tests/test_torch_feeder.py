@@ -403,10 +403,74 @@ def test_require_mode_never_takes_the_host_inline_path():
     assert f.stats["decode_device_items"] == 2
 
 
-def test_sha256_lane_is_a_later_slice():
+def test_backend_sha256_stage_compute_readback():
+    """The backend's sha256 op: stage -> compute -> readback gives
+    hashlib's hex digests for buffers and span lists alike."""
     be = TorchDeviceBackend(device="cpu")
-    with pytest.raises(NotImplementedError):
-        be.stage("sha256", [b"x"])
+    msgs = [b"x", b"", (b"ab", b"c"), bytes(range(200))]
+    staged = be.stage("sha256", msgs)
+    got = be.readback("sha256", be.compute("sha256", staged))
+    assert got == [hashlib.sha256(b"".join(m) if isinstance(m, tuple)
+                                  else m).hexdigest() for m in msgs]
+
+
+class _RecordingBackend(TorchDeviceBackend):
+    """Records the shape of every staged sha256 group."""
+
+    def __init__(self, **kw):
+        super().__init__(**kw)
+        self.sha_groups = []
+
+    def _stage_sha256(self, datas):
+        rows, nbs = super()._stage_sha256(datas)
+        self.sha_groups.append((tuple(rows.shape), nbs.tolist()))
+        return rows, nbs
+
+
+@pytest.mark.parametrize("streams", [1, 5])
+def test_sha256_hex_matches_reference(streams):
+    """Port feeder vs the JAX package's: the JAX feeder takes its device
+    route (XLA on the CPU) only with more than one active stream, the
+    port's always takes the device route."""
+    ref, port = _feeders()
+    ref.active_streams = port.active_streams = streams
+    msgs = _blocks(streams, 90 + streams, size=700)
+    msgs[0] = [msgs[0][:100], msgs[0][100:]]  # a span list
+
+    def calls(f):
+        return [f.sha256_hex(m) for m in msgs]
+
+    want, got = asyncio.run(_both(ref, port, calls))
+    assert got == want == [
+        hashlib.sha256(b"".join(m) if isinstance(m, list) else m)
+        .hexdigest() for m in msgs]
+    assert port.stats["device_items"] == streams
+    assert port.pipeline_stats()["op_items"] == {"sha256": streams}
+
+
+def test_concurrent_sha256_calls_batch_into_one_group():
+    """Concurrent streams' chunk digests form one batch and one S2
+    group whose row width is its longest message's padded length."""
+    be = _RecordingBackend(device="cpu")
+    f = DeviceFeeder(backend=be, device="cpu")
+    lengths = [10, 3000, 100, 1000, 64]
+    msgs = _blocks(len(lengths), 91, size=3000)
+    msgs = [m[:n] for m, n in zip(msgs, lengths)]
+    f.active_streams = len(msgs)
+
+    async def go():
+        try:
+            return await asyncio.gather(*(f.sha256_hex(m) for m in msgs))
+        finally:
+            await f.stop()
+
+    got = asyncio.run(go())
+    assert got == [hashlib.sha256(m).hexdigest() for m in msgs]
+    assert f.stats["batches"] == 1 and f.stats["device_batches"] == 1
+    nbs = [(n + 9 + 63) // 64 for n in lengths]
+    assert be.sha_groups == [((len(msgs), max(nbs) * 64), nbs)]
+    assert be.stats["pad_waste_bytes"] == len(msgs) * max(nbs) * 64 \
+        - sum(lengths)
 
 
 def test_probe_and_cuda_entry_points():
@@ -435,3 +499,26 @@ def test_codec_encode_batch_matches_reference():
     blocks = _blocks(3, 80, size=5_000)
     got = ErasureCodec(K, M, device="cpu").encode_batch(blocks)
     assert got == JCodec(K, M, use_jax=True).encode_batch(blocks)
+
+
+@pytest.mark.parametrize("present", [(0, 1, 2, 3, 4, 5, 6, 7, 8, 9),
+                                     (1, 2, 3, 4, 5, 6, 7, 8, 9, 10),
+                                     (0, 2, 4, 6, 8, 10, 11, 12, 13, 1)])
+def test_codec_host_paths_match_reference(present):
+    """The codec's host-only single-stripe paths (all-systematic
+    decode, deep scrub's localization, repair_parts) equal the JAX
+    package's."""
+    block = b"\x00" + _blocks(1, 81, size=5_000)[0]
+    st = _stripe(block[1:])
+    parts = {i: st[i] for i in present}
+    port, ref = ErasureCodec(K, M, device="cpu"), JCodec(K, M, use_jax=False)
+    assert port.decode(parts, len(block)) == ref.decode(parts, len(block)) \
+        == block
+    missing = tuple(i for i in range(K + M) if i not in present)
+    assert port.repair_parts(parts, missing) == \
+        ref.repair_parts(parts, missing) == {i: st[i] for i in missing}
+    full = dict(enumerate(st))
+    assert port.parity_ok(full, b"") and ref.parity_ok(full, b"")
+    bad = dict(full)
+    bad[K] = bytes([bad[K][0] ^ 1]) + bad[K][1:]
+    assert not port.parity_ok(bad, b"") and not ref.parity_ok(bad, b"")

@@ -73,3 +73,79 @@ def test_every_module_imports_and_encodes_without_jax():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
     assert "IMPORTED" in r.stdout
+
+
+_S3_CHILD = r"""
+import asyncio, hashlib, os, sys, tempfile, threading
+sys.modules["jax"] = None
+sys.modules["garage_tpu"] = None
+sys.path.insert(0, os.path.join(os.getcwd(), "tests"))
+import torch
+torch.set_num_threads(1)
+import garage_tpu_torch.api.s3.api_server
+import garage_tpu_torch.cli.main
+import garage_tpu_torch.cli.server
+from garage_tpu_torch.admin.rpc import AdminRpcHandler
+from garage_tpu_torch.api.s3.api_server import S3ApiServer
+from garage_tpu_torch.model.garage import Garage
+from garage_tpu_torch.rpc.layout import NodeRole
+from garage_tpu_torch.utils.config import Config, DataDir
+from s3util import S3Client
+
+
+async def main(tmp):
+    cfg = Config(metadata_dir=os.path.join(tmp, "meta"),
+                 data_dir=[DataDir(path=os.path.join(tmp, "data"))],
+                 rpc_bind_addr="127.0.0.1:0", db_engine="memory",
+                 replication_factor=1, block_size=65536)
+    g = Garage(cfg, device="cpu")
+    task = asyncio.create_task(g.run())
+    lm = g.system.layout_manager
+    lm.history.stage_role(g.system.id, NodeRole(zone="dc1", capacity=1 << 30))
+    lm.apply_staged(None)
+    admin = AdminRpcHandler(g)
+    key = await admin.op_key_new({"name": "t"})
+    await admin.op_key_allow({"key": key["key_id"], "create_bucket": True})
+    s3 = S3ApiServer(g)
+    await s3.start("127.0.0.1", 0)
+    port = s3.http.bound_port
+    c = S3Client("127.0.0.1", port, key["key_id"], key["secret_key"])
+    # one 64 KiB chunk, the size at which the verifier hands a chunk's
+    # digest to the feeder, and a short one that it hashes on the host
+    body = os.urandom(65_536 + 34_464)
+
+    def client():
+        assert c.request("PUT", "/bkt")[0] == 200
+        st, hdr, _ = c.put_chunked("/bkt/o", [body[:65_536], body[65_536:]])
+        assert st == 200 and hdr["etag"].strip('"') == \
+            hashlib.md5(body).hexdigest(), (st, hdr)
+        st, _, got = c.request("GET", "/bkt/o")
+        assert st == 200 and got == body
+
+    await asyncio.to_thread(client)
+    feeder = g.block_manager.feeder
+    assert feeder.stats["device_items"] > 0
+    assert feeder.pipeline_stats()["op_items"].get("sha256", 0) >= 1
+    await s3.stop()
+    await g.stop()
+    task.cancel()
+    await asyncio.gather(task, return_exceptions=True)
+
+with tempfile.TemporaryDirectory() as tmp:
+    asyncio.run(main(tmp))
+bad = sorted(n for n in sys.modules
+             if n.split(".")[0] in ("jax", "jaxlib", "garage_tpu")
+             and sys.modules[n] is not None)
+assert not bad, bad
+print("S3 OK")
+"""
+
+
+def test_s3_entry_points_put_get_without_jax():
+    """The server entry, the CLI and the S3 front end import with jax
+    and garage_tpu blocked, and one PUT/GET runs on the CPU."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run([sys.executable, "-c", _S3_CHILD], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-3000:]
+    assert "S3 OK" in r.stdout

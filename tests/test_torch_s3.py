@@ -1,0 +1,409 @@
+"""The port's S3 slice as a whole, on the CPU: a forked port server
+(`garage_tpu_torch.cli.server --device cpu`, with jax and garage_tpu
+blocked in the child) set up through the port's CLI, driven with the
+independent signer in tests/s3util.py; and the node's on-disk state
+read back across the two packages in both directions.
+
+Stages share one set of node directories (one garage.toml serves both
+packages): the port server, then the JAX package's server on the same
+directories, then the port server again. Objects are small (64 KiB
+blocks); one signed chunk is exactly 64 KiB, the size at which the
+SigV4 verifier hands a chunk to the feeder's sha256 lane (kernel S2's
+plain torch version here), so that lane runs once.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import base64
+import hashlib
+import os
+import signal
+import socket
+import subprocess
+import sys
+import zlib
+
+import numpy as np
+import pytest
+
+from s3util import S3Client, xml_find
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CHUNK = 64 << 10
+
+# the port's entry points, run with jax and garage_tpu unimportable
+_BLOCKED = ("import runpy, sys; sys.modules['jax'] = None; "
+            "sys.modules['garage_tpu'] = None; "
+            "runpy.run_module({mod!r}, run_name='__main__')")
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _body(n: int, seed: int) -> bytes:
+    return np.random.default_rng(seed).integers(
+        0, 256, n, dtype=np.uint8).tobytes()
+
+
+def _etag(hdr: dict) -> str:
+    return hdr.get("etag", "").strip('"')
+
+
+class Node:
+    """One node's directories and config, served by either package."""
+
+    def __init__(self, tmpdir: str):
+        self.dir = tmpdir
+        self.rpc_port = free_port()
+        self.s3_port = free_port()
+        self.config_path = os.path.join(tmpdir, "garage.toml")
+        with open(self.config_path, "w") as f:
+            f.write(f"""
+metadata_dir = "{tmpdir}/meta"
+data_dir = "{tmpdir}/data"
+replication_factor = 1
+block_size = 65536
+rpc_bind_addr = "127.0.0.1:{self.rpc_port}"
+rpc_public_addr = "127.0.0.1:{self.rpc_port}"
+
+[s3_api]
+api_bind_addr = "127.0.0.1:{self.s3_port}"
+s3_region = "garage"
+root_domain = ".s3.garage.test"
+""")
+        self.proc = None
+        self.package = None
+        self.client = None
+
+    def _cmd(self, package: str, mod: str, *args: str) -> list[str]:
+        if package == "port":
+            return [sys.executable, "-c",
+                    _BLOCKED.format(mod=f"garage_tpu_torch.{mod}"), *args]
+        return [sys.executable, "-m", f"garage_tpu.{mod}", *args]
+
+    def start(self, package: str) -> None:
+        self.stop()
+        args = ["--config", self.config_path, "--log-level", "warning"]
+        if package == "port":
+            args += ["--device", "cpu"]
+        env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu",
+                   PYTHONUNBUFFERED="1", OMP_NUM_THREADS="1")
+        self.proc = subprocess.Popen(
+            self._cmd(package, "cli.server", *args), cwd=REPO, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        self.package = package
+        while True:
+            line = self.proc.stdout.readline()
+            if "ready" in line:
+                return
+            if not line and self.proc.poll() is not None:
+                raise RuntimeError(f"{package} server died: "
+                                   + self.proc.stdout.read())
+
+    def cli(self, *args: str) -> str:
+        env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu")
+        r = subprocess.run(
+            self._cmd("port", "cli.main", "--config", self.config_path,
+                      *args),
+            cwd=REPO, env=env, capture_output=True, text=True, timeout=60)
+        assert r.returncode == 0, f"cli {args}: {r.stdout}{r.stderr}"
+        return r.stdout
+
+    def setup(self) -> None:
+        """Layout, key and bucket through the port's CLI and S3 API."""
+        out = self.cli("status")
+        node_id = next(line.split()[-1] for line in out.splitlines()
+                       if line.startswith("node id:"))
+        self.cli("layout", "assign", node_id, "-z", "dc1", "-c", "1G")
+        self.cli("layout", "apply")
+        out = self.cli("key", "new", "--name", "test")
+        kid = next(ln.split()[-1] for ln in out.splitlines()
+                   if ln.startswith("Key ID:"))
+        secret = next(ln.split()[-1] for ln in out.splitlines()
+                      if ln.startswith("Secret key:"))
+        self.cli("key", "allow", kid, "--create-bucket")
+        self.client = S3Client("127.0.0.1", self.s3_port, kid, secret)
+        st, _, body = self.client.request("PUT", "/bkt")
+        assert st == 200, body
+
+    def stop(self) -> None:
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+            try:
+                self.proc.wait(timeout=20)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+        if self.proc is not None:
+            self.proc.stdout.close()
+        self.proc = None
+
+
+@pytest.fixture(scope="module")
+def node(tmp_path_factory):
+    n = Node(str(tmp_path_factory.mktemp("torch_s3")))
+    try:
+        yield n
+    finally:
+        n.stop()
+
+
+@pytest.fixture
+def port(node):
+    """The node served by the port's server (set up on first use)."""
+    if node.package != "port":
+        node.start("port")
+    if node.client is None:
+        node.setup()
+    return node.client
+
+
+def _get(c: S3Client, path: str, body: bytes) -> None:
+    st, hdr, got = c.request("GET", path)
+    assert st == 200 and got == body
+    assert _etag(hdr) == hashlib.md5(body).hexdigest()
+
+
+def test_signed_chunked_round_trip_runs_the_sha256_lane(port):
+    body = _body(CHUNK + 3000, 1)
+    st, hdr, resp = port.put_chunked("/bkt/signed",
+                                     [body[:CHUNK], body[CHUNK:]])
+    assert st == 200, resp
+    assert _etag(hdr) == hashlib.md5(body).hexdigest()
+    _get(port, "/bkt/signed", body)
+
+
+def test_signed_trailer_round_trip(port):
+    body = _body(30_000, 2)
+    crc = base64.b64encode(zlib.crc32(body).to_bytes(4, "big")).decode()
+    st, hdr, resp = port.put_chunked(
+        "/bkt/strailer", [body[:20_000], body[20_000:]],
+        trailer=("x-amz-checksum-crc32", crc))
+    assert st == 200, resp
+    assert _etag(hdr) == hashlib.md5(body).hexdigest()
+    _get(port, "/bkt/strailer", body)
+
+
+def test_unsigned_trailer_round_trip(port):
+    body = _body(40_000, 3)
+    crc = base64.b64encode(zlib.crc32(body).to_bytes(4, "big")).decode()
+    st, hdr, resp = port.put_unsigned_trailer(
+        "/bkt/utrailer", [body], trailer=("x-amz-checksum-crc32", crc))
+    assert st == 200, resp
+    _get(port, "/bkt/utrailer", body)
+
+
+def test_unsigned_payload_head_list_and_range(port):
+    body = _body(150_000, 4)  # three 64 KiB blocks
+    st, hdr, resp = port.request("PUT", "/bkt/dir/unsigned", body=body,
+                                 unsigned_payload=True)
+    assert st == 200, resp
+    st, hdr, _ = port.request("HEAD", "/bkt/dir/unsigned")
+    assert st == 200 and int(hdr["content-length"]) == len(body)
+    assert _etag(hdr) == hashlib.md5(body).hexdigest()
+    st, _, resp = port.request("GET", "/bkt", query=[
+        ("list-type", "2"), ("prefix", "dir/")])
+    assert st == 200 and xml_find(resp, "Key") == ["dir/unsigned"]
+    st, _, got = port.request("GET", "/bkt/dir/unsigned",
+                              headers={"range": "bytes=65530-131080"})
+    assert st == 206 and got == body[65530:131081]
+
+
+def test_bad_chunk_signature_is_refused(port):
+    body = _body(20_000, 5)
+    st, _, _ = port.put_chunked("/bkt/badsig", [body[:9000], body[9000:]],
+                                corrupt_chunk_sig=True)
+    assert st == 403
+    st, _, _ = port.request("HEAD", "/bkt/badsig")
+    assert st == 404
+
+
+def test_objects_read_back_across_packages(node, port):
+    """Objects PUT through the port server read back byte-identical with
+    the same ETag through the JAX package's server started on the same
+    directories, the same request gets the same ETag from both, and
+    objects PUT through the JAX server read back through the port's."""
+    c = port
+    a = _body(CHUNK + 100, 6)  # a signed 64 KiB chunk: the S2 lane
+    st, hdr, _ = c.put_chunked("/bkt/from-port", [a[:CHUNK], a[CHUNK:]])
+    assert st == 200
+    etag_port = _etag(hdr)
+    u = _body(100_000, 7)
+    assert c.request("PUT", "/bkt/u-port", body=u,
+                     unsigned_payload=True)[0] == 200
+
+    node.start("jax")
+    _get(c, "/bkt/from-port", a)
+    _get(c, "/bkt/u-port", u)
+    st, hdr, _ = c.put_chunked("/bkt/same-request", [a[:CHUNK], a[CHUNK:]])
+    assert st == 200 and _etag(hdr) == etag_port
+    b = _body(130_000, 8)
+    st, hdr, _ = c.put_chunked("/bkt/from-jax",
+                               [b[:60_000], b[60_000:]])
+    assert st == 200 and _etag(hdr) == hashlib.md5(b).hexdigest()
+
+    node.start("port")
+    _get(c, "/bkt/from-jax", b)
+    _get(c, "/bkt/same-request", a)
+    _get(c, "/bkt/from-port", a)
+
+
+# ---------------------------------------------------------------------------
+# erasure(4,2): blocks across the two packages' BlockManagers
+# ---------------------------------------------------------------------------
+
+
+def _box_config(config_mod, root: str, i: int):
+    d = os.path.join(root, f"node{i}")
+    return config_mod.Config(
+        metadata_dir=os.path.join(d, "meta"),
+        data_dir=[config_mod.DataDir(path=os.path.join(d, "data"))],
+        db_engine="sqlite", replication_factor=3, erasure_coding="4,2",
+        block_size=65536, qos=config_mod.QosConfig(governor=False))
+
+
+async def _boot(pkg: str, root: str, n: int, first: bool):
+    """n nodes of `pkg` ("port" or "jax") on its loopback transport,
+    from the state under `root`; the first boot applies the layout."""
+    if pkg == "port":
+        from garage_tpu_torch.model.garage import Garage
+        from garage_tpu_torch.net import LocalNetwork
+        from garage_tpu_torch.rpc.layout import NodeRole
+        from garage_tpu_torch.utils import config as cfgmod
+        kw = {"device": "cpu"}
+    else:
+        from garage_tpu.model.garage import Garage
+        from garage_tpu.net import LocalNetwork
+        from garage_tpu.rpc.layout import NodeRole
+        from garage_tpu.utils import config as cfgmod
+        kw = {}
+    net = LocalNetwork()
+    gs = [Garage(_box_config(cfgmod, root, i), local_net=net,
+                 status_interval=0.2, ping_interval=0.5, **kw)
+          for i in range(n)]
+    tasks = [asyncio.create_task(g.run(spawn_workers=False)) for g in gs]
+    for g in gs[1:]:
+        await g.netapp.try_connect(gs[0].netapp.public_addr, gs[0].system.id)
+        g.system.peering.add_peer(gs[0].netapp.public_addr, gs[0].system.id)
+    for _ in range(400):
+        if all(len(g.netapp.conns) == n - 1 for g in gs):
+            break
+        await asyncio.sleep(0.05)
+    if first:
+        lm = gs[0].system.layout_manager
+        for g in gs:
+            lm.history.stage_role(g.system.id,
+                                  NodeRole(zone="dc1", capacity=1 << 30))
+        lm.apply_staged(None)
+    for _ in range(400):
+        if all(g.system.layout_manager.history.current().version == 1
+               for g in gs):
+            break
+        await asyncio.sleep(0.05)
+    assert all(g.system.layout_manager.history.current().version == 1
+               for g in gs)
+    return gs, tasks
+
+
+async def _shutdown(gs, tasks) -> None:
+    for g in gs:
+        await g.netapp.shutdown()
+    for g in gs:
+        await g.stop()
+    for t in tasks:
+        t.cancel()
+    await asyncio.gather(*tasks, return_exceptions=True)
+
+
+def test_erasure_blocks_read_back_across_packages(tmp_path):
+    """erasure(4,2) on six nodes: blocks put through the port's
+    BlockManager read back through JAX nodes reopened on the same
+    directories, and blocks the JAX nodes put read back through the
+    port's nodes reopened after them."""
+    import torch
+
+    torch.set_num_threads(1)
+    root = str(tmp_path)
+    port_blocks = [_body(n, 20 + n) for n in (65536, 1000, 40_000)]
+    jax_blocks = [_body(n, 30 + n) for n in (65536, 5000)]
+
+    async def put_all(gs, blocks):
+        bm = gs[0].block_manager
+        hashes = [await bm.hash_block(b) for b in blocks]
+        for h, b in zip(hashes, blocks):
+            await bm.rpc_put_block(h, b)
+        return hashes
+
+    async def read_all(gs, node, hashes, blocks):
+        bm = gs[node].block_manager
+        for h, b in zip(hashes, blocks):
+            assert await bm.rpc_get_block(h) == b
+
+    async def go():
+        gs, tasks = await _boot("port", root, 6, first=True)
+        try:
+            assert gs[0].block_manager.erasure
+            ph = await put_all(gs, port_blocks)
+        finally:
+            await _shutdown(gs, tasks)
+        gs, tasks = await _boot("jax", root, 6, first=False)
+        try:
+            await read_all(gs, 3, ph, port_blocks)
+            jh = await put_all(gs, jax_blocks)
+        finally:
+            await _shutdown(gs, tasks)
+        gs, tasks = await _boot("port", root, 6, first=False)
+        try:
+            await read_all(gs, 5, jh, jax_blocks)
+            await read_all(gs, 1, ph, port_blocks)
+        finally:
+            await _shutdown(gs, tasks)
+
+    asyncio.run(go())
+
+
+def _server_exit(config_text: str, tmp_path, *args: str):
+    cfg = tmp_path / "garage.toml"
+    cfg.write_text(config_text.format(tmp=tmp_path))
+    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
+    return subprocess.run(
+        [sys.executable, "-c",
+         _BLOCKED.format(mod="garage_tpu_torch.cli.server"),
+         "--config", str(cfg), *args],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+
+
+_MIN_CONFIG = """
+metadata_dir = "{tmp}/meta"
+data_dir = "{tmp}/data"
+replication_factor = 1
+rpc_bind_addr = "127.0.0.1:0"
+"""
+
+
+def test_server_runs_on_cuda_unless_asked_for_the_cpu(tmp_path):
+    """Without --device the server asks for CUDA and, with no CUDA
+    device visible, stops before booting instead of running on the
+    CPU."""
+    r = _server_exit(_MIN_CONFIG, tmp_path)
+    assert r.returncode != 0
+    assert "no CUDA device is available" in r.stdout + r.stderr
+    assert not (tmp_path / "meta").exists()
+
+
+@pytest.mark.parametrize("section", [
+    '[admin]\napi_bind_addr = "127.0.0.1:0"\n',
+    '[k2v_api]\napi_bind_addr = "127.0.0.1:0"\n',
+    '[web]\nbind_addr = "127.0.0.1:0"\nroot_domain = ".web"\n',
+    '[gateway]\nworkers = 2\n',
+], ids=["admin", "k2v", "web", "gateway"])
+def test_server_refuses_front_ends_it_has_not_ported(tmp_path, section):
+    r = _server_exit(_MIN_CONFIG + section, tmp_path, "--device", "cpu")
+    assert r.returncode != 0
+    out = r.stdout + r.stderr
+    assert "not ported yet" in out and "later slice" in out
+    assert not (tmp_path / "meta").exists()
