@@ -8,11 +8,16 @@ NVIDIA GPU (written for an H100).
 2. Kernel phase: calls each kernel's wrapper on the card at the shapes
    the main paths give it — G1 gf_apply (RS(10,4) encode, decode and
    repair with mixed erasure patterns), G2 gf_check, B3 blake3_rows, S2
-   sha256_rows (SHA padding edges up to 8 KiB, and 8 and 256 rows of a
-   64 KiB chunk) — and holds the result byte for byte against its plain
-   torch version on the same inputs and against the native C oracles
-   (S2 against hashlib); times each with CUDA events (median of 20
-   launches) beside its bound.
+   sha256_rows (33 ragged rows of 1-1,025 blocks, SHA padding edges up
+   to 8 KiB, and 8 and 256 rows of a 64 KiB chunk) — and holds the
+   result byte for byte against its plain torch version on the same
+   inputs and against the native C oracles (S2 against hashlib); times
+   each with CUDA events (median of 20 eager launches, and per launch
+   of 20 replayed in a CUDA graph: the device time without the host's
+   launch gap) beside its bound, and fails if a kernel reads faster
+   than its bound. S2's bound is its dependent chain, timed on the card
+   in the run (clock64, one thread); G1's tile and grid at each timed
+   shape are printed beside its time.
 3. Block path, with every launch count set to 0 just before it and read
    just after: a DeviceFeeder(codec=ErasureCodec(10, 4), max_batch=256)
    on cuda:0 drives
@@ -89,13 +94,25 @@ B3_OPS_PER_COMPRESSION = 7 * 8 * 12 + 8
 # 2 more shift/xor) + 4 vector loads, 16 byte swaps, 8 state adds and
 # the loop: ~1,407
 S2_OPS_PER_COMPRESSION = 64 * 14 + 48 * 10 + 31
-# the serial floor of one message, S2's operations bound: its blocks
-# are compressed in sequence by one thread, and one warp issues at most
-# one instruction per clock (each round's critical path through `e`,
-# ~4 dependent instructions of ~4 cycles, is shorter), so a message
-# takes at least its blocks x S2_SERIAL_CYCLES cycles at the card's top
-# SM clock (nvidia-smi clocks.max.sm, read in the run)
-S2_SERIAL_CYCLES = max(64 * 4 * 4, S2_OPS_PER_COMPRESSION)
+# S2's chain floor: a message's blocks are compressed in sequence, and
+# each of a block's 64 rounds is at least 3 dependent instructions
+# through `e` (rotate -> LOP3 -> IADD3; 6, 11 and 25 are not byte
+# rotations, so no shorter chain exists on sm_90). The cycles of that
+# 3-instruction chain are measured in the run (sha256.chain_cycles: one
+# thread, clock64), so a message takes at least blocks x 64 x those
+# cycles at the card's top SM clock (nvidia-smi clocks.max.sm)
+S2_CHAIN_INSTRUCTIONS = 3
+# G1's product runs on the tensor cores: dense int8 at 1,979 TOP/s
+# (data sheet); per byte position it multiplies 8k input bits into 8
+# output bits of two rows at once (bits 0 and 7 of each sum), 2 x 8k x 8
+# x ceil(r / 2) operations
+INT8_OPS_PER_S = 1979e12
+
+
+def g1_ops(b: int, s: int, k: int, r: int) -> int:
+    return 2 * b * s * 8 * k * 8 * -(-r // 2)
+
+
 # S3 phase: Garage's erasure(10,4) on 14 nodes, 1 MiB blocks, SigV4
 # aws-chunked bodies in 64 KiB chunks; 9 metadata replicas, the fewest
 # whose majority quorums survive the m = 4 node failures the erasure
@@ -132,6 +149,36 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def graph_ms(torch, fn, reps: int = 20) -> float:
+    """Device time of one call with the host out of the way: `reps` calls
+    captured in one CUDA graph, the median of 5 replays over `reps`."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    return statistics.median(times)
+
+
+def kernel_times(torch, fn) -> dict:
+    """ms: one eager call from the host, as the paths make it (CUDA
+    events, median of 20; at small shapes it holds the wrapper's host
+    time too); device_ms: the same call replayed in a CUDA graph."""
+    return {"ms": time_ms(torch, fn), "device_ms": graph_ms(torch, fn)}
 
 
 def max_abs_err(torch, a, b) -> int:
@@ -172,6 +219,7 @@ def kernel_phase(torch, data: np.ndarray, rng, dev, sm_hz: float) -> dict:
     # G1, encode: one broadcast parity matrix
     pmat = torch.from_numpy(rs.parity_matrix(K, M)[None].copy()).to(dev)
     out = gf_kernel.gf_apply(pmat, x)
+    plan = dict(gf_kernel.last_plan)  # the tile and grid it launched with
     plain = gf_kernel.gf_apply_plain(pmat, x)
     err = max_abs_err(torch, out, plain)
     out_np = out.cpu().numpy()
@@ -182,21 +230,25 @@ def kernel_phase(torch, data: np.ndarray, rng, dev, sm_hz: float) -> dict:
     del plain
     res["gf_apply"] = {
         "err": err,
-        "ms": time_ms(torch, lambda: gf_kernel.gf_apply(pmat, x)),
+        **kernel_times(torch, lambda: gf_kernel.gf_apply(pmat, x)),
         "plain_ms": time_ms(torch, lambda: gf_kernel.gf_apply_plain(pmat, x),
                             reps=5, warmup=1),
-        # G1 and G2 are table lookups and xors; their bound is the bytes
-        # (no matrix product runs that a data-sheet rate would price)
         "bytes": (K + M) * s * BATCH + M * K,
+        "ops": g1_ops(BATCH, s, K, M), "ops_per_s": INT8_OPS_PER_S,
+        "plan": plan,
         "shape": f"encode ({BATCH},{K},{s})->({BATCH},{M},{s})"}
     # the PUT path's own batches are as wide as the concurrent objects
     xp = x[:PUT_BATCH]
     check(torch.equal(gf_kernel.gf_apply(pmat, xp),
                       gf_kernel.gf_apply_plain(pmat, xp)),
           f"G1 encode != plain torch at batch {PUT_BATCH}")
+    plan = dict(gf_kernel.last_plan)
     res["gf_apply[put]"] = {
-        "err": 0, "ms": time_ms(torch, lambda: gf_kernel.gf_apply(pmat, xp)),
+        "err": 0, **kernel_times(torch, lambda: gf_kernel.gf_apply(pmat, xp)),
         "bytes": (K + M) * s * PUT_BATCH + M * K,
+        "ops": g1_ops(PUT_BATCH, s, K, M),
+        "ops_per_s": INT8_OPS_PER_S,
+        "plan": plan,
         "shape": f"encode ({PUT_BATCH},{K},{s})->({PUT_BATCH},{M},{s})"}
 
     # G2 on the verified parity, 8 stripes corrupted in one byte each
@@ -211,9 +263,10 @@ def kernel_phase(torch, data: np.ndarray, rng, dev, sm_hz: float) -> dict:
     check(torch.equal(ok, ok_plain), "G2 != plain torch")
     res["gf_check"] = {
         "err": 0,
-        "ms": time_ms(torch, lambda: gf_kernel.gf_check(pmat, stripes)),
+        **kernel_times(torch, lambda: gf_kernel.gf_check(pmat, stripes)),
         "plain_ms": time_ms(torch, lambda: gf_kernel.gf_check_plain(
             pmat, stripes), reps=5, warmup=1),
+        # G2 is table lookups and xors: its bound is the bytes
         "bytes": (K + M) * s * BATCH + 4 * BATCH + M * K,
         "shape": f"({BATCH},{K + M},{s}) -> ({BATCH},) flags"}
     del stripes, out
@@ -227,6 +280,7 @@ def kernel_phase(torch, data: np.ndarray, rng, dev, sm_hz: float) -> dict:
             for p, e in (pats[i % len(pats)] for i in range(BATCH))])
         mats = torch.from_numpy(mats_np).to(dev)
         got = gf_kernel.gf_apply(mats, x)
+        plan = dict(gf_kernel.last_plan)
         plain = gf_kernel.gf_apply_plain(mats, x)
         err = max_abs_err(torch, got, plain)
         check(err == 0, f"G1 {op} != plain torch (max err {err})")
@@ -237,10 +291,13 @@ def kernel_phase(torch, data: np.ndarray, rng, dev, sm_hz: float) -> dict:
         del plain, got
         res[f"gf_apply[{op}]"] = {
             "err": err,
-            "ms": time_ms(torch, lambda: gf_kernel.gf_apply(mats, x)),
+            **kernel_times(torch, lambda: gf_kernel.gf_apply(mats, x)),
             "plain_ms": time_ms(torch, lambda: gf_kernel.gf_apply_plain(
                 mats, x), reps=5, warmup=1),
             "bytes": (K + rows) * s * BATCH + rows * K * BATCH,
+            "ops": g1_ops(BATCH, s, K, rows),
+            "ops_per_s": INT8_OPS_PER_S,
+            "plan": plan,
             "shape": f"{op} ({BATCH},{K},{s})->({BATCH},{rows},{s}), "
                      f"{len(pats)} patterns"}
     del x
@@ -276,7 +333,7 @@ def kernel_phase(torch, data: np.ndarray, rng, dev, sm_hz: float) -> dict:
     compressions = BATCH * (16 * (BLOCK // 1024) + BLOCK // 1024 - 1)
     res["blake3_rows"] = {
         "err": err,
-        "ms": time_ms(torch, lambda: treehash.hash_rows(msgs, lens)),
+        **kernel_times(torch, lambda: treehash.hash_rows(msgs, lens)),
         "plain_ms": time_ms(torch, lambda: treehash.hash_rows_plain(
             msgs, lens), reps=5, warmup=1),
         "bytes": BATCH * BLOCK + 4 * BATCH + 32 * BATCH,
@@ -286,7 +343,7 @@ def kernel_phase(torch, data: np.ndarray, rng, dev, sm_hz: float) -> dict:
     check(torch.equal(treehash.hash_rows(mp, lp), plain[:PUT_BATCH]),
           f"B3 != plain torch at batch {PUT_BATCH}")
     res["blake3_rows[put]"] = {
-        "err": 0, "ms": time_ms(torch, lambda: treehash.hash_rows(mp, lp)),
+        "err": 0, **kernel_times(torch, lambda: treehash.hash_rows(mp, lp)),
         "bytes": PUT_BATCH * (BLOCK + 36),
         "ops": compressions // BATCH * PUT_BATCH * B3_OPS_PER_COMPRESSION,
         "shape": f"({PUT_BATCH},{BLOCK}) rows -> ({PUT_BATCH},32) digests"}
@@ -295,12 +352,14 @@ def kernel_phase(torch, data: np.ndarray, rng, dev, sm_hz: float) -> dict:
     res.update(sha256_kernel(torch, data, dev, sm_hz))
     for r in res.values():
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
-        # all lanes of the card, or (S2) one message's serial chain
-        t_ops = max(r.get("ops", 0) / LANE_OPS_PER_S * 1e3,
-                    r.get("serial_ms", 0.0))
+        # all lanes (or G1: the int8 tensor cores) of the card, or (S2)
+        # one message's dependent chain
+        rate = r.get("ops_per_s", LANE_OPS_PER_S)
+        r["ops_ms"] = r.get("ops", 0) / rate * 1e3
+        t_ops = max(r["ops_ms"], r.get("chain_ms", 0.0))
         r["bound_ms"] = max(t_bytes, t_ops)
         r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-        r["gbps"] = r["bytes"] / (r["ms"] * 1e-3) / 1e9
+        r["gbps"] = r["bytes"] / (r["device_ms"] * 1e-3) / 1e9
     return res
 
 
@@ -321,6 +380,17 @@ def sha256_kernel(torch, data: np.ndarray, dev, sm_hz: float) -> dict:
     from garage_tpu_torch.ops import sha256 as sha
 
     res = {}
+    # rows of 1, 2, 17 and 1,025 blocks in one launch of 33 rows: two
+    # CTAs, lanes that finish at different blocks
+    lens = [(0, 64, 1024, S3_CHUNK)[i % 4] + i % 3 for i in range(33)]
+    msgs = [data[i * 5003:i * 5003 + n].tobytes() for i, n in enumerate(lens)]
+    buf, nbs = sha_rows(sha, msgs)
+    got_np = sha.hash_rows(torch.from_numpy(buf).to(dev),
+                           torch.from_numpy(nbs).to(dev)).cpu().numpy()
+    check(all(got_np[i].tobytes() == hashlib.sha256(m).digest()
+              for i, m in enumerate(msgs)),
+          "S2 != hashlib on ragged rows of 1-1,025 blocks")
+    chain = sha.chain_cycles(dev)
     lens = [0, 55, 56, 63, 64, 119, 120, 8192]
     msgs = [data[i * 9973:i * 9973 + n].tobytes() for i, n in enumerate(lens)]
     buf, nbs = sha_rows(sha, msgs)
@@ -349,10 +419,12 @@ def sha256_kernel(torch, data: np.ndarray, dev, sm_hz: float) -> dict:
         comp = rows * int(nbs[0])
         out[rows] = {
             "err": 0,
-            "ms": time_ms(torch, lambda: sha.hash_rows(m_t, n_t)),
+            **kernel_times(torch, lambda: sha.hash_rows(m_t, n_t)),
             "bytes": buf.size + 4 * rows + 32 * rows,
             "ops": comp * S2_OPS_PER_COMPRESSION,
-            "serial_ms": int(nbs.max()) * S2_SERIAL_CYCLES / sm_hz * 1e3,
+            "chain_cycles_per_round": chain,
+            "dep_latency_cycles": chain / S2_CHAIN_INSTRUCTIONS,
+            "chain_ms": int(nbs.max()) * 64 * chain / sm_hz * 1e3,
             "hashlib_ms": host_ms,
             "shape": f"({rows},{buf.shape[1]}) rows of {S3_CHUNK} B -> "
                      f"({rows},32) digests"}
@@ -800,13 +872,22 @@ def main() -> int:
     kres = kernel_phase(torch, data, rng, dev, max_sm_clock_hz())
     for name, r in kres.items():
         print(f"kernel {name} {r['shape']}: ok, {r['ms']:.4f} ms "
-              f"({r['gbps']:.1f} GB/s), bound {r['bound_ms']:.4f} ms "
+              f"({r['gbps']:.1f} GB/s), device {r['device_ms']:.4f} ms "
+              f"(CUDA graph), bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']})"
               + (f", plain {r['plain_ms']:.2f} ms" if "plain_ms" in r
                  else "")
-              + (f", serial floor {r['serial_ms']:.4f} ms, all-lanes "
-                 f"{r['ops'] / LANE_OPS_PER_S * 1e3:.5f} ms, host hashlib "
-                 f"{r['hashlib_ms']:.3f} ms" if "serial_ms" in r else ""))
+              + (f", tile {r['plan']['tile']} B, grid {r['plan']['grid']} "
+                 f"CTAs over {r['plan']['units']} units, int8 tensor-core "
+                 f"bound {r['ops_ms']:.4f} ms" if "plan" in r else "")
+              + (f", chain {r['chain_cycles_per_round']:.3f} cycles per "
+                 f"round ({r['dep_latency_cycles']:.3f} per dependent "
+                 f"instruction), chain floor {r['chain_ms']:.4f} ms, "
+                 f"all-lanes {r['ops_ms']:.5f} ms, host hashlib "
+                 f"{r['hashlib_ms']:.3f} ms" if "chain_ms" in r else ""))
+        check(min(r["ms"], r["device_ms"]) >= r["bound_ms"],
+              f"kernel {name} reads above its bound: {r['device_ms']} ms < "
+              f"{r['bound_ms']} ms")
 
     root = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -913,8 +994,23 @@ def main() -> int:
             "replaces": replaces,
             "launches": launches[name] + s3_launches[name],
             "max_abs_err": r["err"], "ms": r["ms"],
+            "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None})
+    by_name = {k["name"]: k for k in kernels}
+    by_name["gf_apply"]["shapes"] = {
+        key: {"ms": kres[key]["ms"], "device_ms": kres[key]["device_ms"],
+              "bound_ms": kres[key]["bound_ms"],
+              "bound_by": kres[key]["bound_by"],
+              "tile": kres[key]["plan"]["tile"],
+              "grid": kres[key]["plan"]["grid"]}
+        for key in ("gf_apply", "gf_apply[put]", "gf_apply[decode]",
+                    "gf_apply[repair]")}
+    s2, s2_256 = kres["sha256_rows"], kres["sha256_rows[256]"]
+    by_name["sha256_rows"].update({
+        "dep_latency_cycles": s2["dep_latency_cycles"],
+        "chain_cycles_per_round": s2["chain_cycles_per_round"],
+        "rows256": {"ms": s2_256["ms"], "device_ms": s2_256["device_ms"]}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -75,8 +75,10 @@ def build_all(names=SOURCES) -> dict[str, dict]:
             continue
         os.replace(tmp, out)
         done[n] = {"seconds": time.perf_counter() - t0,
-                   "ptxas": [ln.strip() for ln in text.splitlines()
-                             if "registers" in ln or "spill" in ln]}
+                   "ptxas": [ln.split("ptxas info    : ")[-1].strip()
+                             for ln in text.splitlines()
+                             if "registers" in ln or "spill" in ln
+                             or "entry function" in ln]}
     build_log.update(done)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))

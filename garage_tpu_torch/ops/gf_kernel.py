@@ -5,6 +5,15 @@ G1 replaces the JAX package's Pallas kernel (ops/pallas_gf.py:_kernel)
 and its XLA twins (ops/gf256.py:bit_matmul_apply,
 bit_matmul_apply_batched); G2 replaces ops/rs.py:_jit_parity_check.
 Both are bound by memory: (k + r) * S bytes per item at 3.35 TB/s.
+G1 computes on the tensor cores (int8 mma of 0/1 bit planes) over work
+units of one (item, S-tile), the tile and the persistent grid planned
+from the launch shape and the device by the library's own `gt_g1_plan`
+(`g1_plan`; `last_plan` keeps the plan of the latest launch). One G1
+launch takes at most MAX_ROWS output and MAX_K input rows; a larger map
+(the decode of erasure(20,4)) runs as launches over slices of both, the
+launches along k XORing their products into the output. G2 keeps
+shared-memory product tables (`_mul_table`), at most MAX_ROWS parity
+rows.
 
 Each wrapper takes its kernel's plain torch version for a tensor on the
 CPU, and only there; a CUDA tensor launches the kernel or raises. The
@@ -15,6 +24,7 @@ coefficient matrices are runtime operands — (B, r, k) per item, or
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -26,13 +36,19 @@ launches = {"gf_apply": 0, "gf_check": 0}
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _SIGNATURES = {
-    "gt_gf_apply": [_P, _P, _I64, _P, _P, ctypes.c_int, ctypes.c_int,
-                    ctypes.c_int, _I64, _P],
+    "gt_gf_apply": [_P, _I64, _P, _I64, _P, _I64, ctypes.c_int,
+                    ctypes.c_int, ctypes.c_int, _I64, ctypes.c_int,
+                    ctypes.c_int, ctypes.c_int, _P],
+    "gt_g1_plan": [ctypes.c_int, ctypes.c_int, ctypes.c_int, _I64, _P],
     "gt_gf_check": [_P, _P, _I64, _P, _P, ctypes.c_int, ctypes.c_int,
                     ctypes.c_int, _I64, _P],
 }
-MAX_ROWS = 16  # GF_MAX_ROWS in csrc/gf256.cu
-VEC = 16  # bytes per thread step: the kernels need S % 16 == 0
+MAX_ROWS = 16  # GF_MAX_ROWS in csrc/gf256.cu: output rows of one launch
+MAX_K = 16  # input rows of one G1 launch: 4 * G1_MAX_KS in csrc/gf256.cu
+VEC = 16  # the kernels need S % 16 == 0 (16-byte rows for bulk copies)
+# G1's geometry at the latest launch: the launch shape and gt_g1_plan's
+# tile, grid, units and shared memory
+last_plan: dict = {}
 
 _MUL = gf256.gf_mul(np.arange(256, dtype=np.uint8)[:, None],
                     np.arange(256, dtype=np.uint8)[None, :])  # (256, 256)
@@ -57,7 +73,7 @@ def _check_args(mats: torch.Tensor, x: torch.Tensor, k: int, r: int) -> None:
             or mats.shape[2] != k:
         raise ValueError(f"matrices {tuple(mats.shape)} do not fit data "
                          f"{tuple(x.shape)}")
-    if not 1 <= r <= MAX_ROWS or r * k * 256 > 200 * 1024:
+    if r < 1 or k < 1:
         raise ValueError(f"unsupported GF map {r}x{k}")
 
 
@@ -66,6 +82,19 @@ def _launch_args(mats: torch.Tensor):
     mats = mats.contiguous()
     stride = 0 if mats.shape[0] == 1 else mats.shape[1] * mats.shape[2]
     return mats, stride
+
+
+@functools.lru_cache(maxsize=1024)
+def g1_plan(b: int, k: int, r: int, s: int,
+            device: torch.device) -> tuple[int, int, int, int]:
+    """G1's (tile, grid, units, smem) for b items of (k <= MAX_K, s) ->
+    (r <= MAX_ROWS, s) on `device`, from the library's planner
+    (gt_g1_plan)."""
+    plan = (ctypes.c_int * 4)()
+    lib = _build.load("gf256", _SIGNATURES)
+    with torch.cuda.device(device):
+        _build.check(lib.gt_g1_plan(b, k, r, s, plan), "g1_plan")
+    return tuple(plan)
 
 
 def gf_apply_plain(mats: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -88,13 +117,26 @@ def gf_apply(mats: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     xk = torch.nn.functional.pad(x, (0, pad)) if pad else x.contiguous()
     mats, stride = _launch_args(mats)
     out = torch.empty((b, r, s + pad), dtype=torch.uint8, device=x.device)
+    if xk.data_ptr() % 16 or out.data_ptr() % 16:
+        raise ValueError("G1 rows must start 16-byte aligned (bulk copies)")
     lib = _build.load("gf256", _SIGNATURES)
-    err = lib.gt_gf_apply(
-        _mul_table(x.device).data_ptr(), mats.data_ptr(), stride,
-        xk.data_ptr(), out.data_ptr(), b, k, r, s + pad,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "gf_apply")
-    launches["gf_apply"] += 1
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    sp = s + pad
+    for i in range(0, r, MAX_ROWS):  # output rows i .. i + ri
+        ri = min(MAX_ROWS, r - i)
+        for j in range(0, k, MAX_K):  # input rows j .. j + kj
+            kj = min(MAX_K, k - j)
+            mij, sij = ((mats, stride) if (ri, kj) == (r, k) else
+                        _launch_args(mats[:, i:i + ri, j:j + kj]))
+            tile, grid, units, smem = g1_plan(b, kj, ri, sp, x.device)
+            err = lib.gt_gf_apply(
+                mij.data_ptr(), sij, xk.data_ptr() + j * sp, k * sp,
+                out.data_ptr() + i * sp, r * sp, b, kj, ri, sp, tile, grid,
+                int(j > 0), stream)
+            _build.check(err, "gf_apply")
+            launches["gf_apply"] += 1
+            last_plan.update(b=b, k=kj, r=ri, s=sp, tile=tile, grid=grid,
+                             units=units, smem=smem)
     return out[..., :s] if pad else out
 
 
@@ -113,6 +155,8 @@ def gf_check(mats: torch.Tensor, stripes: torch.Tensor) -> torch.Tensor:
     if n != k + m:
         raise ValueError(f"stripes {tuple(stripes.shape)} need {k + m} rows")
     _check_args(mats, stripes, k, m)
+    if m > MAX_ROWS or m * k * 256 > 200 * 1024:  # G2's registers, tables
+        raise ValueError(f"unsupported parity map {m}x{k}")
     if stripes.device.type == "cpu":
         return gf_check_plain(mats, stripes)
     if stripes.device.type != "cuda":

@@ -15,6 +15,10 @@ counts, and returns (B, 32) uint8 digests: the kernel on a CUDA tensor,
 the plain torch version (`hash_rows_plain`) on a CPU tensor. Bytes past
 a row's last active block are never read, so a group's row width is its
 longest message's padded length and shorter rows need no zeroing there.
+S2 is warp-specialised: per CTA of up to 32 messages a producer warp
+stages blocks and computes the message schedule, a consumer warp runs
+the rounds (csrc/sha256.cu); `chain_cycles` times the dependent chain
+that bounds a message on the card.
 
 Torch on the CPU has no shifts or adds on uint32, so the plain version
 works in int64 masked to 32 bits; a rotate is a shift of the word
@@ -180,10 +184,10 @@ def hash_rows_plain(msgs: torch.Tensor, nblocks: torch.Tensor) -> torch.Tensor:
 launches = {"sha256_rows": 0}
 
 _P = ctypes.c_void_p
-_SIGNATURES = {"gt_sha256_rows": [_P, ctypes.c_longlong, _P, ctypes.c_int,
-                                  _P, _P]}
-
-
+_SIGNATURES = {
+    "gt_sha256_rows": [_P, ctypes.c_longlong, _P, ctypes.c_int, _P, _P],
+    "gt_sha256_chain_cycles": [_P, ctypes.c_int, _P],
+}
 def hash_rows(msgs: torch.Tensor, nblocks: torch.Tensor) -> torch.Tensor:
     """Batched SHA-256: (B, W) u8 padded rows + (B,) i32 block counts ->
     (B, 32) u8 digests; one S2 launch on a CUDA tensor."""
@@ -212,3 +216,19 @@ def hash_rows(msgs: torch.Tensor, nblocks: torch.Tensor) -> torch.Tensor:
     _build.check(err, "sha256_rows")
     launches["sha256_rows"] += 1
     return out
+
+
+CHAIN_STEPS = 4096
+
+
+def chain_cycles(device: torch.device) -> float:
+    """SM clock cycles of one step of S2's dependent chain (rotate ->
+    LOP3 -> IADD3, the least a round can take through `e`), timed on the
+    card by one thread with clock64 over CHAIN_STEPS dependent steps. Not a
+    kernel of the path: it feeds S2's bound, and counts no launch."""
+    out = torch.zeros(2, dtype=torch.int64, device=device)
+    lib = _build.load("sha256", _SIGNATURES)
+    _build.check(lib.gt_sha256_chain_cycles(
+        out.data_ptr(), CHAIN_STEPS,
+        torch.cuda.current_stream(device).cuda_stream), "sha256_chain_cycles")
+    return int(out[0].item()) / CHAIN_STEPS

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from garage_tpu_torch import native
 from garage_tpu_torch.ops import gf_kernel, rs, sha256, treehash
 
 pytestmark = pytest.mark.cuda
@@ -98,3 +99,149 @@ def test_sha256_rows_matches_plain_and_hashlib(dev, lengths):
         want = sha256.hash_rows(torch.from_numpy(rows),
                                 torch.from_numpy(nbs)).numpy()
         assert np.array_equal(got, want)
+
+
+# --- S2 (warp-specialised) and G1 (tensor cores): shapes of the redesign
+
+
+def _sha_rows(msgs, width=None, fill=0):
+    nbs = np.array([sha256.n_blocks_for(len(m)) for m in msgs], np.int32)
+    width = width or int(nbs.max()) * sha256.BLOCK
+    rows = np.full((len(msgs), width), fill, np.uint8)
+    for i, m in enumerate(msgs):
+        rows[i, :int(nbs[i]) * sha256.BLOCK] = 0
+        sha256.pad_row_into(rows[i], m)
+    return rows, nbs
+
+
+@pytest.mark.parametrize("b", [1, 8, 31, 32, 33, 256, 300])
+def test_sha256_rows_mixed_block_counts(dev, b):
+    """Rows of 1, 2, 17 and 1,025 blocks in one launch, so a consumer
+    warp's lanes finish at different blocks, and (B > 32) CTAs of
+    different lengths."""
+    rng = np.random.default_rng(b)
+    sizes = [0, 64, 1024, 65536]  # 1, 2, 17, 1025 blocks
+    lens = [sizes[int(i)] + int(rng.integers(0, 8))
+            for i in rng.integers(0, 4, b)]
+    lens = [min(n, 65536) for n in lens]
+    msgs = [_data(1000 + i, n).tobytes() for i, n in enumerate(lens)]
+    rows, nbs = _sha_rows(msgs)
+    got = sha256.hash_rows(torch.from_numpy(rows).to(dev),
+                           torch.from_numpy(nbs).to(dev)).cpu().numpy()
+    for i, m in enumerate(msgs):
+        assert got[i].tobytes() == hashlib.sha256(m).digest(), i
+    small = [i for i, n in enumerate(lens) if n <= 1024][:8]
+    if small:  # the plain torch version, on rows short enough for it
+        sub, nsub = _sha_rows([msgs[i] for i in small])
+        want = sha256.hash_rows(torch.from_numpy(sub),
+                                torch.from_numpy(nsub)).numpy()
+        assert np.array_equal(got[small], want)
+
+
+def test_sha256_rows_wider_buffer_than_blocks(dev):
+    """Bytes past a row's blocks (here 0xFF) are never read."""
+    msgs = [_data(77 + n, n).tobytes() for n in (3, 100, 1000)]
+    rows, nbs = _sha_rows(msgs, width=64 * 64, fill=0xFF)
+    got = sha256.hash_rows(torch.from_numpy(rows).to(dev),
+                           torch.from_numpy(nbs).to(dev)).cpu().numpy()
+    want = sha256.hash_rows(torch.from_numpy(rows),
+                            torch.from_numpy(nbs)).numpy()
+    assert np.array_equal(got, want)
+    for i, m in enumerate(msgs):
+        assert got[i].tobytes() == hashlib.sha256(m).digest()
+
+
+@pytest.mark.parametrize("b", [1, 8, 256])
+@pytest.mark.parametrize("s", [16, 4096, 2048 * 3 + 48])
+@pytest.mark.parametrize("k,r", [(1, 1), (16, 1), (1, 16), (16, 16), (10, 4)])
+def test_gf_apply_shapes_broadcast_and_per_item(dev, b, s, k, r):
+    rng = np.random.default_rng(b * 7 + s + k * 31 + r)
+    x = rng.integers(0, 256, (b, k, s), dtype=np.uint8)
+    one = rng.integers(0, 256, (1, r, k), dtype=np.uint8)
+    per = rng.integers(0, 256, (b, r, k), dtype=np.uint8)
+    xt = torch.from_numpy(x)
+    for mats in (one, per):
+        mt = torch.from_numpy(mats)
+        got = gf_kernel.gf_apply(mt.to(dev), xt.to(dev)).cpu().numpy()
+        want = gf_kernel.gf_apply_plain(mt, xt).numpy()
+        assert np.array_equal(got, want)
+        for i in (0, b - 1):
+            assert np.array_equal(got[i], native.gf_matmul(
+                mats[i % mats.shape[0]], x[i]))
+
+
+def test_gf_apply_every_rs42_pattern_and_mixed_rs104(dev):
+    """Every RS(4,2) decode pattern, then 40 mixed RS(10,4) decode and
+    repair patterns, each in one launch."""
+    import itertools
+
+    x = _data(5, (15, 4, 4096))
+    pats = list(itertools.combinations(range(6), 4))
+    mats = np.stack([rs.decode_matrix(4, 2, p) for p in pats])
+    got = gf_kernel.gf_apply(torch.from_numpy(mats).to(dev),
+                             torch.from_numpy(x).to(dev)).cpu().numpy()
+    for i in range(len(pats)):
+        assert np.array_equal(got[i], native.gf_matmul(mats[i], x[i]))
+    rng = np.random.default_rng(6)
+    x = rng.integers(0, 256, (40, 10, 104864), dtype=np.uint8)
+    erased = [tuple(sorted(rng.choice(14, 4, replace=False)))
+              for _ in range(40)]
+    present = [tuple(i for i in range(14) if i not in e) for e in erased]
+    for mats in (np.stack([rs.decode_matrix(10, 4, p) for p in present]),
+                 np.stack([rs.repair_matrix(10, 4, p, e)
+                           for p, e in zip(present, erased)])):
+        mt, xt = torch.from_numpy(mats), torch.from_numpy(x)
+        got = gf_kernel.gf_apply(mt.to(dev), xt.to(dev)).cpu().numpy()
+        assert np.array_equal(got, gf_kernel.gf_apply_plain(mt, xt).numpy())
+        for i in (0, 17, 39):
+            assert np.array_equal(got[i], native.gf_matmul(mats[i], x[i]))
+
+
+@pytest.mark.parametrize("k,r", [(17, 4), (20, 20), (33, 1), (50, 16),
+                                 (4, 17), (40, 40)])
+def test_gf_apply_maps_wider_than_one_launch(dev, k, r):
+    """Maps past one launch's 16 x 16 run as launches over 16-row slices
+    of input and output, the slices along k XORed into the output;
+    broadcast and per-item matrices, S not a tile multiple."""
+    rng = np.random.default_rng(k * 5 + r)
+    x = rng.integers(0, 256, (8, k, 2048 + 48), dtype=np.uint8)
+    xt = torch.from_numpy(x)
+    for mats in (rng.integers(0, 256, (1, r, k), dtype=np.uint8),
+                 rng.integers(0, 256, (8, r, k), dtype=np.uint8)):
+        mt = torch.from_numpy(mats)
+        before = gf_kernel.launches["gf_apply"]
+        got = gf_kernel.gf_apply(mt.to(dev), xt.to(dev)).cpu().numpy()
+        assert gf_kernel.launches["gf_apply"] - before == \
+            -(-k // 16) * -(-r // 16)
+        assert np.array_equal(got, gf_kernel.gf_apply_plain(mt, xt).numpy())
+        for i in (0, 7):
+            assert np.array_equal(got[i], native.gf_matmul(
+                mats[i % mats.shape[0]], x[i]))
+
+
+@pytest.mark.parametrize("b,r,tile", [(8, 4, 2048), (8, 10, 2048),
+                                      (256, 4, 2048), (256, 10, 2048),
+                                      (1, 4, 256)])
+def test_g1_plan_at_the_path_shapes(dev, b, r, tile):
+    """The library's planner on the card, RS(10,4) shards of a 1 MiB
+    block: 2 KiB tiles fill every SM at the PUT batch of 8 and stay
+    within the CTAs the registers allow at 256; one stripe is too few
+    units for any tile but the smallest."""
+    s = 104864
+    got_tile, grid, units, smem = gf_kernel.g1_plan(b, 10, r, s, dev)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert got_tile == tile
+    assert units == b * -(-s // tile)
+    assert 1 <= grid <= min(units, 16 * n_sm)
+    assert smem >= 2 * 10 * tile
+    x = torch.zeros((b, 10, s), dtype=torch.uint8, device=dev)
+    gf_kernel.gf_apply(torch.zeros((1, r, 10), dtype=torch.uint8,
+                                   device=dev), x)
+    assert gf_kernel.last_plan == {"b": b, "k": 10, "r": r, "s": s,
+                                   "tile": tile, "grid": grid,
+                                   "units": units, "smem": smem}
+
+
+def test_sha256_chain_cycles_is_measured(dev):
+    c = sha256.chain_cycles(dev)
+    assert 3 <= c < 200

@@ -196,8 +196,8 @@ def test_gf_apply_rejects_bad_operands():
         gf_kernel.gf_apply(torch.zeros((2, 2, 3), dtype=torch.uint8), x)
     with pytest.raises(TypeError):
         gf_kernel.gf_apply(torch.zeros((1, 2, 4), dtype=torch.int32), x)
-    with pytest.raises(ValueError):  # more rows than the kernel holds
-        gf_kernel.gf_apply(torch.zeros((1, 17, 4), dtype=torch.uint8), x)
+    with pytest.raises(ValueError):  # an empty map
+        gf_kernel.gf_apply(torch.zeros((1, 0, 4), dtype=torch.uint8), x)
 
 
 # ---------------------------------------------------------------------------
