@@ -3,6 +3,12 @@
 NVIDIA GPU (written for an H100).
 
     python3 chip_smoke.py            # from the root of a checkout
+    python3 chip_smoke.py --kernel-phase-of DIR   # step 2 of DIR only
+
+The second form builds the kernels of the checkout at DIR and runs its
+own kernel phase (its chip_smoke.kernel_phase, seed and data), printing
+each kernel's times as one JSON line: run it for two checkouts in turns
+(A, B, B, A) in one call to compare their kernels on one card.
 
 1. Builds the CUDA kernels from csrc/ (one nvcc per source, in parallel).
 2. Kernel phase: calls each kernel's wrapper on the card at the shapes
@@ -15,9 +21,11 @@ NVIDIA GPU (written for an H100).
    each with CUDA events (median of 20 eager launches, and per launch
    of 20 replayed in a CUDA graph: the device time without the host's
    launch gap) beside its bound, and fails if a kernel reads faster
-   than its bound. S2's bound is its dependent chain, timed on the card
-   in the run (clock64, one thread); G1's tile and grid at each timed
-   shape are printed beside its time.
+   than its bound. S2's and B3's bounds include their dependent chains,
+   timed on the card in the run (clock64, one thread); G1's and G2's
+   tile and grid and B3's CTAs at each timed shape are printed beside
+   its time. G2 also checks wide codes (erasure(1,17), (51,16) and
+   (240,16)) with planted corruptions against its plain version.
 3. Block path, with every launch count set to 0 just before it and read
    just after: a DeviceFeeder(codec=ErasureCodec(10, 4), max_batch=256)
    on cuda:0 drives
@@ -46,7 +54,8 @@ NVIDIA GPU (written for an H100).
    chunk of the first round must have reached S2.
 5. Prints the card (nvidia-smi name and power limit), the build time,
    per-kernel launches / ms / GB/s, the paths' rates and the feeders'
-   counters, a `{"kernels": [...]}` line, and last
+   counters, B3's launches by batch size on each path, a
+   `{"kernels": [...]}` line, and last
    `{"ok": true, "device": {...}}`.
 
 Any mismatch, a kernel with no launch on its path, or a host fallback
@@ -102,6 +111,17 @@ S2_OPS_PER_COMPRESSION = 64 * 14 + 48 * 10 + 31
 # thread, clock64), so a message takes at least blocks x 64 x those
 # cycles at the card's top SM clock (nvidia-smi clocks.max.sm)
 S2_CHAIN_INSTRUCTIONS = 3
+# B3's chain floor: a row's digest needs 16 + ceil(log2 C) compressions
+# in series (a chunk's 16 blocks, then one parent per tree level), each
+# 7 rounds of 2 G steps in series (columns, then diagonals); the cycles
+# of one G step's dependent chain (4 add -> xor -> rotate triples) are
+# measured in the run (treehash.chain_cycles: one thread, clock64)
+B3_G_STEPS_PER_COMPRESSION = 14
+
+
+def b3_chain_ms(c: int, g_cycles: float, sm_hz: float) -> float:
+    depth = 16 + max(0, (c - 1).bit_length())
+    return depth * B3_G_STEPS_PER_COMPRESSION * g_cycles / sm_hz * 1e3
 # G1's product runs on the tensor cores: dense int8 at 1,979 TOP/s
 # (data sheet); per byte position it multiplies 8k input bits into 8
 # output bits of two rows at once (bits 0 and 7 of each sum), 2 x 8k x 8
@@ -261,15 +281,20 @@ def kernel_phase(torch, data: np.ndarray, rng, dev, sm_hz: float) -> dict:
     flagged = sorted(int(i) for i in torch.nonzero(~ok).flatten().tolist())
     check(flagged == bad, f"G2 flagged {flagged}, planted {bad}")
     check(torch.equal(ok, ok_plain), "G2 != plain torch")
+    plan = dict(gf_kernel.last_check_plan)
     res["gf_check"] = {
         "err": 0,
         **kernel_times(torch, lambda: gf_kernel.gf_check(pmat, stripes)),
         "plain_ms": time_ms(torch, lambda: gf_kernel.gf_check_plain(
             pmat, stripes), reps=5, warmup=1),
-        # G2 is table lookups and xors: its bound is the bytes
+        # the syndrome's int8 products: 2 x 8(k + m) x 8 x ceil(m / 2)
+        # operations per byte position, below the bytes
         "bytes": (K + M) * s * BATCH + 4 * BATCH + M * K,
+        "ops": g1_ops(BATCH, s, K + M, M), "ops_per_s": INT8_OPS_PER_S,
+        "plan": plan,
         "shape": f"({BATCH},{K + M},{s}) -> ({BATCH},) flags"}
     del stripes, out
+    res["gf_check"]["wide"] = g2_wide_codes(torch, rng, dev)
 
     # G1, decode and repair: per-item matrices, mixed erasure patterns
     pats = patterns(rng, 16)
@@ -316,7 +341,8 @@ def kernel_phase(torch, data: np.ndarray, rng, dev, sm_hz: float) -> dict:
     check(all(got_np[i].tobytes() == want[i] for i in range(BATCH)),
           "B3 != native BLAKE3")
     for lengths in ([0, 1, 63, 64, 65, 1023, 1024], [1025, 2047, 2048],
-                    [3 * 1024 + 1, 4096], [BLOCK - 1, BLOCK]):
+                    [3 * 1024 + 1, 4096], [BLOCK - 1, BLOCK], [BLOCK],
+                    [33 * 1024 - 5]):
         c = max(1, -(-max(lengths) // 1024))
         m_np = np.zeros((len(lengths), c * 1024), dtype=np.uint8)
         for i, n in enumerate(lengths):
@@ -331,9 +357,15 @@ def kernel_phase(torch, data: np.ndarray, rng, dev, sm_hz: float) -> dict:
         check(all(got_e[i].tobytes() == w for i, w in enumerate(want_e)),
               f"B3 != native at {lengths}")
     compressions = BATCH * (16 * (BLOCK // 1024) + BLOCK // 1024 - 1)
+    g_cycles = treehash.chain_cycles(dev)
+    treehash.hash_rows(msgs, lens)
+    plan = dict(treehash.last_plan)
     res["blake3_rows"] = {
         "err": err,
         **kernel_times(torch, lambda: treehash.hash_rows(msgs, lens)),
+        "chain_cycles_per_g": g_cycles,
+        "chain_ms": b3_chain_ms(BLOCK // 1024, g_cycles, sm_hz),
+        "plan": plan,
         "plain_ms": time_ms(torch, lambda: treehash.hash_rows_plain(
             msgs, lens), reps=5, warmup=1),
         "bytes": BATCH * BLOCK + 4 * BATCH + 32 * BATCH,
@@ -342,8 +374,12 @@ def kernel_phase(torch, data: np.ndarray, rng, dev, sm_hz: float) -> dict:
     mp, lp = msgs[:PUT_BATCH], lens[:PUT_BATCH]
     check(torch.equal(treehash.hash_rows(mp, lp), plain[:PUT_BATCH]),
           f"B3 != plain torch at batch {PUT_BATCH}")
+    plan = dict(treehash.last_plan)
     res["blake3_rows[put]"] = {
         "err": 0, **kernel_times(torch, lambda: treehash.hash_rows(mp, lp)),
+        "chain_cycles_per_g": g_cycles,
+        "chain_ms": b3_chain_ms(BLOCK // 1024, g_cycles, sm_hz),
+        "plan": plan,
         "bytes": PUT_BATCH * (BLOCK + 36),
         "ops": compressions // BATCH * PUT_BATCH * B3_OPS_PER_COMPRESSION,
         "shape": f"({PUT_BATCH},{BLOCK}) rows -> ({PUT_BATCH},32) digests"}
@@ -361,6 +397,42 @@ def kernel_phase(torch, data: np.ndarray, rng, dev, sm_hz: float) -> dict:
         r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         r["gbps"] = r["bytes"] / (r["device_ms"] * 1e-3) / 1e9
     return res
+
+
+def g2_wide_codes(torch, rng, dev) -> dict:
+    """G2 on codes past 16 parity rows or k x m > 800 (a few launches over
+    groups of syndrome rows): 10 stripes each, 8 with one flipped byte
+    (in the first and last data and parity rows, and random ones; at the
+    first byte, the last, or one of the last 16) and 2 intact; exactly
+    the planted stripes are flagged, as by the plain version."""
+    from garage_tpu_torch import native
+    from garage_tpu_torch.ops import gf_kernel, rs
+
+    out = {}
+    s = 4096 + 32
+    for k, m in ((1, 17), (51, 16), (240, 16)):
+        n = k + m
+        data = rng.integers(0, 256, (10, k, s), dtype=np.uint8)
+        pmat = rs.parity_matrix(k, m)
+        st = np.concatenate([data, np.stack([native.gf_matmul(pmat, d)
+                                             for d in data])], axis=1)
+        rows = [0, k - 1, k, n - 1] + [int(i) for i in rng.integers(0, n, 4)]
+        for i, row in enumerate(rows):
+            pos = [0, s - 1, s - 1 - int(rng.integers(1, 16))][i % 3]
+            st[i, row, pos] ^= 1 << int(rng.integers(8))
+        st_t = torch.from_numpy(st).to(dev)
+        before = gf_kernel.launches["gf_check"]
+        ok = rs.parity_check(k, m, st_t)
+        launches = gf_kernel.launches["gf_check"] - before
+        check(ok.cpu().tolist() == [False] * 8 + [True] * 2,
+              f"G2 ({k},{m}) flagged {(~ok).nonzero().flatten().tolist()}, "
+              f"planted 0-7")
+        mats = torch.from_numpy(pmat[None].copy()).to(dev)
+        check(torch.equal(ok, gf_kernel.gf_check_plain(mats, st_t)),
+              f"G2 ({k},{m}) != plain torch")
+        out[f"{k},{m}"] = {"launches": launches, "rows_per_launch":
+                           gf_kernel.g2_plan(10, k, m, s, dev)[0]}
+    return out
 
 
 def sha_rows(sha, msgs: list) -> tuple[np.ndarray, np.ndarray]:
@@ -816,6 +888,35 @@ async def s3_phase(data: np.ndarray, root: str, dev, *, nodes: int = 14,
         pool.shutdown(wait=True)
 
 
+def geometry(name: str, r: dict) -> str:
+    """The launch geometry and the operation or chain floors of a timed
+    kernel shape, for its kernel line."""
+    p = r.get("plan", {})
+    if name.startswith("gf_apply"):
+        return (f", tile {p['tile']} B, grid {p['grid']} CTAs over "
+                f"{p['units']} units, int8 tensor-core bound "
+                f"{r['ops_ms']:.4f} ms")
+    if name.startswith("gf_check"):
+        return (f", tile {p['tile']} B, grid {p['grid']} CTAs over "
+                f"{p['units']} units, {p['launches']} launch(es), int8 "
+                f"tensor-core bound {r['ops_ms']:.4f} ms")
+    if name.startswith("blake3"):
+        return (f", {p['ctas']} CTAs of {p['warps_per_cta']} warps, "
+                f"{p['blocks']} blocks a row, "
+                f"{'small-batch' if p['small'] else 'full-card'} instance, "
+                f"chain "
+                f"{r['chain_cycles_per_g']:.3f} cycles per G step, chain "
+                f"floor {r['chain_ms']:.4f} ms, all-lanes "
+                f"{r['ops_ms']:.5f} ms")
+    if "chain_ms" in r:
+        return (f", chain {r['chain_cycles_per_round']:.3f} cycles per "
+                f"round ({r['dep_latency_cycles']:.3f} per dependent "
+                f"instruction), chain floor {r['chain_ms']:.4f} ms, "
+                f"all-lanes {r['ops_ms']:.5f} ms, host hashlib "
+                f"{r['hashlib_ms']:.3f} ms")
+    return ""
+
+
 def max_sm_clock_hz() -> float:
     """The card's top SM clock, as nvidia-smi reports it (MHz)."""
     out = subprocess.run(
@@ -841,7 +942,7 @@ def main() -> int:
     sys.path.insert(0, HERE)
     try:
         from garage_tpu_torch.ops import _build, kernel_launches, \
-            reset_launches
+            reset_launches, treehash
     except ImportError as e:
         print(f"chip_smoke: garage_tpu_torch not found beside this script "
               f"({e})", file=sys.stderr)
@@ -876,18 +977,14 @@ def main() -> int:
               f"(CUDA graph), bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']})"
               + (f", plain {r['plain_ms']:.2f} ms" if "plain_ms" in r
-                 else "")
-              + (f", tile {r['plan']['tile']} B, grid {r['plan']['grid']} "
-                 f"CTAs over {r['plan']['units']} units, int8 tensor-core "
-                 f"bound {r['ops_ms']:.4f} ms" if "plan" in r else "")
-              + (f", chain {r['chain_cycles_per_round']:.3f} cycles per "
-                 f"round ({r['dep_latency_cycles']:.3f} per dependent "
-                 f"instruction), chain floor {r['chain_ms']:.4f} ms, "
-                 f"all-lanes {r['ops_ms']:.5f} ms, host hashlib "
-                 f"{r['hashlib_ms']:.3f} ms" if "chain_ms" in r else ""))
+                 else "") + geometry(name, r))
         check(min(r["ms"], r["device_ms"]) >= r["bound_ms"],
               f"kernel {name} reads above its bound: {r['device_ms']} ms < "
               f"{r['bound_ms']} ms")
+    for code, w in kres["gf_check"]["wide"].items():
+        print(f"kernel gf_check erasure({code}): 8 planted stripes of 10 "
+              f"flagged, equal to plain torch; {w['launches']} launch(es) "
+              f"of {w['rows_per_launch']} syndrome rows")
 
     root = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -896,9 +993,11 @@ def main() -> int:
         rates = asyncio.run(main_path(data, os.path.join(root, "block"),
                                       rng, dev))
         launches = kernel_launches()
+        b3_batches = dict(sorted(treehash.batch_sizes.items()))
         reset_launches()
         s3 = asyncio.run(s3_phase(data, os.path.join(root, "s3"), dev))
         s3_launches = kernel_launches()
+        s3_b3_batches = dict(sorted(treehash.batch_sizes.items()))
     finally:
         shutil.rmtree(root, ignore_errors=True)
     stats = rates["stats"]
@@ -917,6 +1016,8 @@ def main() -> int:
           "max_batch={max_batch}".format(**stats))
     print(f"pipeline: {json.dumps(rates['pipeline'])}")
     print(f"launches on the block path: {json.dumps(launches)}")
+    print(f"B3 launches by batch size (rows) on the block path: "
+          f"{json.dumps(b3_batches)}")
     check(stats["device_fallbacks"] == 0, "device fallbacks on the main path")
     check(stats["device_items"] == stats["items"],
           "a main-path request did not run on the device")
@@ -966,6 +1067,8 @@ def main() -> int:
           f"{json.dumps(s3['pipeline_signed'])}")
     print(f"S3 pipeline at the end: {json.dumps(s3['pipeline'])}")
     print(f"launches on the S3 path: {json.dumps(s3_launches)}")
+    print(f"B3 launches by batch size (rows) on the S3 path: "
+          f"{json.dumps(s3_b3_batches)}")
     check(s3["fallbacks_all_nodes"] == 0, "device fallbacks on the S3 path")
     check(s3["stats"]["device_items"] == s3["stats"]["items"],
           "an S3-path request did not run on the device")
@@ -1006,6 +1109,21 @@ def main() -> int:
               "grid": kres[key]["plan"]["grid"]}
         for key in ("gf_apply", "gf_apply[put]", "gf_apply[decode]",
                     "gf_apply[repair]")}
+    for name, keys in (("gf_check", ("tile", "grid", "units", "launches")),
+                       ("blake3_rows", ("warps_per_cta", "ctas", "blocks",
+                                        "small"))):
+        by_name[name]["shapes"] = {
+            key: {"ms": kres[key]["ms"], "device_ms": kres[key]["device_ms"],
+                  "bound_ms": kres[key]["bound_ms"],
+                  "bound_by": kres[key]["bound_by"],
+                  **{g: kres[key]["plan"][g] for g in keys}}
+            for key in kres if key.startswith(name)}
+    b3 = kres["blake3_rows"]
+    by_name["blake3_rows"].update({
+        "chain_cycles_per_g": b3["chain_cycles_per_g"],
+        "chain_ms": b3["chain_ms"],
+        "batches": {"block": b3_batches, "s3": s3_b3_batches}})
+    by_name["gf_check"]["wide"] = kres["gf_check"]["wide"]
     s2, s2_256 = kres["sha256_rows"], kres["sha256_rows[256]"]
     by_name["sha256_rows"].update({
         "dep_latency_cycles": s2["dep_latency_cycles"],
@@ -1018,8 +1136,45 @@ def main() -> int:
     return 0
 
 
+def kernel_phase_of(tree: str) -> int:
+    """Step 2 of the checkout at `tree`, with its own script, seed and
+    data; prints {"tree", "kernels": {name: {"ms", "device_ms"}}}."""
+    import importlib.util
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false",
+              file=sys.stderr)
+        return 2
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_of_tree", os.path.join(tree, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    from garage_tpu_torch.ops import _build
+
+    check(os.path.dirname(os.path.dirname(_build.CSRC)) == tree,
+          f"garage_tpu_torch of {tree} not first on the path")
+    _build.build_all()
+    rng = np.random.default_rng(mod.SEED)
+    data = np.frombuffer(bytearray(rng.bytes(max(
+        mod.N_BLOCKS * mod.BLOCK,
+        (mod.S3_OBJECTS + mod.S3_UNSIGNED) * mod.S3_OBJ_SIZE))),
+        dtype=np.uint8)
+    res = mod.kernel_phase(torch, data, rng, torch.device("cuda", 0),
+                           max_sm_clock_hz())
+    print(json.dumps({"tree": tree, "kernels": {
+        name: {"ms": r["ms"], "device_ms": r["device_ms"]}
+        for name, r in res.items()}}))
+    return 0
+
+
 if __name__ == "__main__":
     try:
+        if len(sys.argv) == 3 and sys.argv[1] == "--kernel-phase-of":
+            sys.exit(kernel_phase_of(sys.argv[2]))
         sys.exit(main())
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

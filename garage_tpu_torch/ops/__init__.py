@@ -24,8 +24,10 @@ def kernel_launches() -> dict[str, int]:
 
 
 def reset_launches() -> None:
+    """Every launch count to 0, and B3's batch-size histogram emptied."""
     from . import gf_kernel, sha256, treehash
 
     for counts in (gf_kernel.launches, treehash.launches, sha256.launches):
         for name in counts:
             counts[name] = 0
+    treehash.batch_sizes.clear()

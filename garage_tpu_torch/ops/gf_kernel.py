@@ -11,9 +11,13 @@ from the launch shape and the device by the library's own `gt_g1_plan`
 (`g1_plan`; `last_plan` keeps the plan of the latest launch). One G1
 launch takes at most MAX_ROWS output and MAX_K input rows; a larger map
 (the decode of erasure(20,4)) runs as launches over slices of both, the
-launches along k XORing their products into the output. G2 keeps
-shared-memory product tables (`_mul_table`), at most MAX_ROWS parity
-rows.
+launches along k XORing their products into the output. G2 computes
+the syndrome [A | I] . stripe on the tensor cores with the same
+operands and planner (`g2_plan`; `last_check_plan`) and flags a stripe
+where any syndrome bit is set (one byte per stripe, set to 1 by a
+memset in the same entry and cleared by the kernel); it takes every
+code with k + m <= 256, the rows of a code too tall for one launch
+split over a few launches that clear the same bytes.
 
 Each wrapper takes its kernel's plain torch version for a tensor on the
 CPU, and only there; a CUDA tensor launches the kernel or raises. The
@@ -26,7 +30,6 @@ from __future__ import annotations
 import ctypes
 import functools
 
-import numpy as np
 import torch
 
 from . import _build, gf256
@@ -39,29 +42,19 @@ _SIGNATURES = {
     "gt_gf_apply": [_P, _I64, _P, _I64, _P, _I64, ctypes.c_int,
                     ctypes.c_int, ctypes.c_int, _I64, ctypes.c_int,
                     ctypes.c_int, ctypes.c_int, _P],
-    "gt_g1_plan": [ctypes.c_int, ctypes.c_int, ctypes.c_int, _I64, _P],
-    "gt_gf_check": [_P, _P, _I64, _P, _P, ctypes.c_int, ctypes.c_int,
-                    ctypes.c_int, _I64, _P],
+    "gt_g1_plan": [ctypes.c_int, ctypes.c_int, ctypes.c_int, _I64,
+                   ctypes.c_int, _P],
+    "gt_gf_check": [_P, _I64, _P, _I64, _P, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_int, ctypes.c_int, ctypes.c_int, _I64,
+                    ctypes.c_int, ctypes.c_int, _P],
 }
-MAX_ROWS = 16  # GF_MAX_ROWS in csrc/gf256.cu: output rows of one launch
+MAX_ROWS = 16  # GF_MAX_ROWS in csrc/gf256.cu: output rows of one G1 launch
 MAX_K = 16  # input rows of one G1 launch: 4 * G1_MAX_KS in csrc/gf256.cu
 VEC = 16  # the kernels need S % 16 == 0 (16-byte rows for bulk copies)
-# G1's geometry at the latest launch: the launch shape and gt_g1_plan's
-# tile, grid, units and shared memory
+# G1's and G2's geometry at their latest launch: the launch shape and
+# gt_g1_plan's tile, grid, units and shared memory
 last_plan: dict = {}
-
-_MUL = gf256.gf_mul(np.arange(256, dtype=np.uint8)[:, None],
-                    np.arange(256, dtype=np.uint8)[None, :])  # (256, 256)
-_mul_tables: dict[torch.device, torch.Tensor] = {}
-
-
-def _mul_table(device: torch.device) -> torch.Tensor:
-    """The full 64 KiB product table on `device` (row c = c * v)."""
-    t = _mul_tables.get(device)
-    if t is None:
-        t = torch.from_numpy(np.ascontiguousarray(_MUL).reshape(-1)).to(device)
-        _mul_tables[device] = t
-    return t
+last_check_plan: dict = {}
 
 
 def _check_args(mats: torch.Tensor, x: torch.Tensor, k: int, r: int) -> None:
@@ -85,16 +78,32 @@ def _launch_args(mats: torch.Tensor):
 
 
 @functools.lru_cache(maxsize=1024)
+def _plan(b: int, k: int, r: int, s: int, check: bool,
+          device: torch.device) -> tuple[int, int, int, int, int]:
+    plan = (ctypes.c_int * 5)()
+    lib = _build.load("gf256", _SIGNATURES)
+    with torch.cuda.device(device):
+        _build.check(lib.gt_g1_plan(b, k, r, s, int(check), plan),
+                     "g2_plan" if check else "g1_plan")
+    return tuple(plan)
+
+
 def g1_plan(b: int, k: int, r: int, s: int,
             device: torch.device) -> tuple[int, int, int, int]:
     """G1's (tile, grid, units, smem) for b items of (k <= MAX_K, s) ->
     (r <= MAX_ROWS, s) on `device`, from the library's planner
     (gt_g1_plan)."""
-    plan = (ctypes.c_int * 4)()
-    lib = _build.load("gf256", _SIGNATURES)
-    with torch.cuda.device(device):
-        _build.check(lib.gt_g1_plan(b, k, r, s, plan), "g1_plan")
-    return tuple(plan)
+    return _plan(b, k, r, s, False, device)[:4]
+
+
+def g2_plan(b: int, k: int, m: int, s: int,
+            device: torch.device) -> tuple[int, int, int, int, int]:
+    """G2's (rows, tile, grid, units, smem) for b stripes of k data rows
+    and m parity rows of s bytes: `rows` is the most of the m syndrome
+    rows one launch takes, and the rest of the plan that launch's
+    (gt_g1_plan with check = 1)."""
+    tile, grid, units, smem, rows = _plan(b, k, m, s, True, device)
+    return rows, tile, grid, units, smem
 
 
 def gf_apply_plain(mats: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -155,8 +164,6 @@ def gf_check(mats: torch.Tensor, stripes: torch.Tensor) -> torch.Tensor:
     if n != k + m:
         raise ValueError(f"stripes {tuple(stripes.shape)} need {k + m} rows")
     _check_args(mats, stripes, k, m)
-    if m > MAX_ROWS or m * k * 256 > 200 * 1024:  # G2's registers, tables
-        raise ValueError(f"unsupported parity map {m}x{k}")
     if stripes.device.type == "cpu":
         return gf_check_plain(mats, stripes)
     if stripes.device.type != "cuda":
@@ -164,13 +171,23 @@ def gf_check(mats: torch.Tensor, stripes: torch.Tensor) -> torch.Tensor:
     pad = -s % VEC  # zero columns encode to zero parity: padding is safe
     st = (torch.nn.functional.pad(stripes, (0, pad)) if pad
           else stripes.contiguous())
+    if st.data_ptr() % 16:
+        raise ValueError("G2 rows must start 16-byte aligned (bulk copies)")
+    sp = s + pad
     mats, stride = _launch_args(mats)
-    flags = torch.zeros(b, dtype=torch.int32, device=stripes.device)
+    ok = torch.empty(b, dtype=torch.bool, device=stripes.device)
     lib = _build.load("gf256", _SIGNATURES)
-    err = lib.gt_gf_check(
-        _mul_table(stripes.device).data_ptr(), mats.data_ptr(), stride,
-        st.data_ptr(), flags.data_ptr(), b, k, m, s + pad,
-        torch.cuda.current_stream(stripes.device).cuda_stream)
-    _build.check(err, "gf_check")
-    launches["gf_check"] += 1
-    return flags == 0
+    stream = torch.cuda.current_stream(stripes.device).cuda_stream
+    rows = g2_plan(b, k, m, sp, stripes.device)[0]
+    for off in range(0, m, rows):  # syndrome rows off .. off + ri
+        ri = min(rows, m - off)
+        _, tile, grid, units, smem = g2_plan(b, k, ri, sp, stripes.device)
+        err = lib.gt_gf_check(
+            mats.data_ptr() + off * k, stride, st.data_ptr(), n * sp,
+            ok.data_ptr(), int(off == 0), b, k, ri, off, sp, tile, grid,
+            stream)
+        _build.check(err, "gf_check")
+        launches["gf_check"] += 1
+        last_check_plan.update(b=b, k=k, r=ri, s=sp, tile=tile, grid=grid,
+                               units=units, smem=smem, launches=-(-m // rows))
+    return ok

@@ -4,12 +4,16 @@ the wrapper of kernel B3 (hand-written CUDA, csrc/blake3.cu).
 B3 replaces the JAX package's ops/treehash.py:hash_rows (with
 _compress_lanes and the jitted hash_fn), the program that hashes every
 block on PUT and on scrub. It is bound by the integer ALU: a 1 MiB row
-is ~17.4 k compressions of ~800 32-bit operations each.
+is ~17.4 k compressions of ~680 32-bit instructions each; at small
+batches by the dependent chain of 16 + ceil(log2 C) compressions.
 
 `hash_rows(msgs, lengths)` takes (B, C*1024) zero-padded uint8 rows and
 (B,) int32 lengths and returns (B, 32) uint8 digests: the kernel on a
-CUDA tensor, the plain torch version (`hash_rows_plain`) on a CPU
-tensor. Precondition, as in the JAX package: every row's length spans
+CUDA tensor (one launch: a CTA per block of 32-128 chunks of a row, the
+block's subtree merged in shared memory, the block roots by the row's
+last CTA), the plain torch version
+(`hash_rows_plain`) on a CPU tensor. `chain_cycles` times the dependent
+chain that bounds a row on the card. Precondition, as in the JAX package: every row's length spans
 exactly C chunks (pad rows are full-length zero messages). Torch on the
 CPU has no shifts or adds on uint32 and int32 shifts are arithmetic, so
 the plain version works in int64 masked to 32 bits.
@@ -22,6 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -225,15 +230,55 @@ def hash_rows_plain(msgs: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 launches = {"blake3_rows": 0}
+# launches by batch (rows per call), and the geometry of the latest one
+batch_sizes: dict[int, int] = {}
+last_plan: dict = {}
+
+CHAIN_STEPS = 4096
 
 _P = ctypes.c_void_p
-_SIGNATURES = {"gt_blake3_rows": [_P, ctypes.c_longlong, _P, ctypes.c_int,
-                                  ctypes.c_int, _P, _P, _P, _P]}
+_I = ctypes.c_int
+_SIGNATURES = {
+    "gt_blake3_rows": [_P, ctypes.c_longlong, _P, _I, _I, _P, _P, _P, _I, _I,
+                       _P],
+    "gt_b3_plan": [_I, _I, _P],
+    "gt_blake3_chain_cycles": [_P, _I, _P],
+}
+# (device, stream) -> the rows' ticket counters: zero between launches
+# (each row's last warp sets its counter back), so one buffer serves
+# every launch on its stream; streams run concurrently, so each has its own
+_tickets: dict[tuple, torch.Tensor] = {}
+_tickets_lock = threading.Lock()
+
+
+@functools.lru_cache(maxsize=1024)
+def b3_plan(b: int, c: int,
+            device: torch.device) -> tuple[int, int, int, int]:
+    """B3's (warps per CTA, CTAs, blocks per row, small) for b rows of c
+    chunks on `device`, from the library's planner (gt_b3_plan): a CTA
+    hashes a block of 32 chunks per warp of one row; `small` (a warp per
+    scheduler at most) picks the latency-bound instance."""
+    plan = (ctypes.c_int * 4)()
+    lib = _build.load("blake3", _SIGNATURES)
+    with torch.cuda.device(device):
+        _build.check(lib.gt_b3_plan(b, c, plan), "b3_plan")
+    return tuple(plan)
+
+
+def _tickets_for(b: int, device: torch.device, stream) -> torch.Tensor:
+    key = (device, stream.cuda_stream)
+    with _tickets_lock:
+        t = _tickets.get(key)
+        if t is None or t.numel() < b:
+            t = torch.zeros(max(b, 256), dtype=torch.int32, device=device)
+            _tickets[key] = t
+        return t
 
 
 def hash_rows(msgs: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     """Batched BLAKE3-256: (B, C*1024) u8 rows + (B,) i32 lengths ->
-    (B, 32) u8 digests; one B3 launch (two passes) on a CUDA tensor."""
+    (B, 32) u8 digests; one B3 launch (chunks and tree fused) on a CUDA
+    tensor."""
     if msgs.dtype != torch.uint8 or msgs.dim() != 2 \
             or msgs.shape[1] % CHUNK_LEN or msgs.shape[1] == 0:
         raise ValueError(f"rows must be (B, C*{CHUNK_LEN}) uint8, got "
@@ -247,20 +292,42 @@ def hash_rows(msgs: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     b, padded = msgs.shape
     c = padded // CHUNK_LEN
     msgs = msgs.contiguous()
+    if msgs.data_ptr() % 16:
+        raise ValueError("rows must start 16-byte aligned (vector loads)")
     lengths = lengths.to(torch.int32).contiguous()
     dev = msgs.device
-    cvs = torch.empty(b * c * 8, dtype=torch.int32, device=dev)
-    scratch = torch.empty(b * ((c + 1) // 2) * 8, dtype=torch.int32,
-                          device=dev)
     out = torch.empty((b, 8), dtype=torch.int32, device=dev)
+    if b == 0:
+        return out.view(torch.uint8)
+    wpc, ctas, blocks, small = b3_plan(b, c, dev)
+    stream = torch.cuda.current_stream(dev)
+    roots = torch.empty(b * blocks * 8 if blocks > 1 else 8,
+                        dtype=torch.int32, device=dev)
+    tickets = _tickets_for(b, dev, stream)
     lib = _build.load("blake3", _SIGNATURES)
     err = lib.gt_blake3_rows(
-        msgs.data_ptr(), padded, lengths.data_ptr(), b, c, cvs.data_ptr(),
-        scratch.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        msgs.data_ptr(), padded, lengths.data_ptr(), b, c, roots.data_ptr(),
+        tickets.data_ptr(), out.data_ptr(), wpc, small, stream.cuda_stream)
     _build.check(err, "blake3_rows")
     launches["blake3_rows"] += 1
+    batch_sizes[b] = batch_sizes.get(b, 0) + 1
+    last_plan.update(b=b, c=c, warps_per_cta=wpc, ctas=ctas, blocks=blocks,
+                     small=bool(small))
     return out.view(torch.uint8)  # little-endian words = digest bytes
+
+
+def chain_cycles(device: torch.device) -> float:
+    """SM clock cycles of one G step of B3's dependent chain (add -> xor ->
+    rotate, four times, through one column, in the forms of the small-
+    batch instance), timed on the card by one thread with clock64 over
+    CHAIN_STEPS steps. A compression is 14 such steps in series. Not a
+    kernel of the path: it feeds B3's bound, and counts no launch."""
+    out = torch.zeros(2, dtype=torch.int64, device=device)
+    lib = _build.load("blake3", _SIGNATURES)
+    _build.check(lib.gt_blake3_chain_cycles(
+        out.data_ptr(), CHAIN_STEPS,
+        torch.cuda.current_stream(device).cuda_stream), "blake3_chain_cycles")
+    return int(out[0].item()) / CHAIN_STEPS
 
 
 def n_chunks_for(length: int) -> int:

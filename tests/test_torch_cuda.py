@@ -245,3 +245,158 @@ def test_g1_plan_at_the_path_shapes(dev, b, r, tile):
 def test_sha256_chain_cycles_is_measured(dev):
     c = sha256.chain_cycles(dev)
     assert 3 <= c < 200
+
+
+# --- B3 (one fused launch) and G2 (tensor-core syndrome): the redesign
+
+
+def _b3_rows(rng, b, c):
+    """b rows of c chunks: ragged lengths ending mid-chunk, on a chunk
+    boundary and one byte into the last chunk; every fourth row a
+    full-length zero pad row."""
+    lens = []
+    for i in range(b):
+        lo = (c - 1) * 1024
+        lens.append([c * 1024, lo + 1, lo + 1 + int(rng.integers(0, 1023)),
+                     c * 1024][i % 4])
+    msgs = np.zeros((b, c * 1024), np.uint8)
+    for i, n in enumerate(lens):
+        if i % 4 != 3:
+            msgs[i, :n] = rng.integers(0, 256, n, dtype=np.uint8)
+    return msgs, lens
+
+
+@pytest.mark.parametrize("b", [1, 8, 33, 256])
+def test_blake3_rows_every_chunk_count(dev, b):
+    """C = 1..70, 1024 and 1025 (blocks of 32-128 chunks: partial blocks,
+    C = 33 just past a block of 32, more than 32 block roots at 1025 in
+    one row): one launch per call, byte-equal to native BLAKE3 and to
+    the plain torch version on the card."""
+    rng = np.random.default_rng(b)
+    for c in list(range(1, 71)) + [1024, 1025]:
+        msgs, lens = _b3_rows(rng, b, c)
+        m_t = torch.from_numpy(msgs).to(dev)
+        l_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+        before = treehash.launches["blake3_rows"]
+        got = treehash.hash_rows(m_t, l_t)
+        assert treehash.launches["blake3_rows"] == before + 1
+        got_np = got.cpu().numpy()
+        want = native.blake3_many([msgs[i, :n].tobytes()
+                                   for i, n in enumerate(lens)])
+        for i in range(b):
+            assert got_np[i].tobytes() == want[i], (c, i, lens[i])
+        assert torch.equal(got, treehash.hash_rows_plain(m_t, l_t)), c
+
+
+def test_blake3_back_to_back_launches_on_different_data(dev):
+    """The row counters come back to zero after every launch: calls of
+    different shapes and data, one after the other on one stream, are
+    all right."""
+    rng = np.random.default_rng(11)
+    shapes = [(8, 1024), (33, 65), (8, 1024), (1, 1025), (256, 40), (3, 33)]
+    for b, c in shapes + shapes[::-1]:
+        msgs, lens = _b3_rows(rng, b, c)
+        got = treehash.hash_rows(
+            torch.from_numpy(msgs).to(dev),
+            torch.tensor(lens, dtype=torch.int32, device=dev)).cpu().numpy()
+        want = native.blake3_many([msgs[i, :n].tobytes()
+                                   for i, n in enumerate(lens)])
+        assert [got[i].tobytes() for i in range(b)] == want, (b, c)
+
+
+@pytest.mark.parametrize("b,c,wpc,ctas,small", [
+    (8, 1024, 2, 128, 1), (1, 1024, 1, 32, 1), (256, 1024, 4, 2048, 0),
+    (1, 1, 1, 1, 1), (3, 33, 1, 6, 1), (256, 70, 4, 256, 0),
+    (16, 1024, 4, 128, 1), (17, 1024, 4, 136, 0)])
+def test_b3_plan_at_the_path_shapes(dev, b, c, wpc, ctas, small):
+    """A CTA per block of 32 chunks per warp of a row; CTAs of 1, 2 or 4
+    warps spread the batch of 8 rows of 1 MiB over 128 SMs, one row over
+    32; the small-batch instance while the warps fit one a scheduler."""
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert n_sm == 132  # the H100 SXM the expected geometry is for
+    blocks = -(-c // (32 * wpc))
+    assert treehash.b3_plan(b, c, dev) == (wpc, ctas, blocks, small)
+    treehash.hash_rows(torch.zeros((b, c * 1024), dtype=torch.uint8,
+                                   device=dev),
+                       torch.full((b,), c * 1024, dtype=torch.int32,
+                                  device=dev))
+    assert treehash.last_plan == {"b": b, "c": c, "warps_per_cta": wpc,
+                                  "ctas": ctas, "blocks": blocks,
+                                  "small": bool(small)}
+    assert treehash.batch_sizes.get(b, 0) >= 1
+
+
+def test_blake3_chain_cycles_is_measured(dev):
+    c = treehash.chain_cycles(dev)
+    assert 12 <= c < 400  # 12 dependent instructions a G step
+
+
+def _stripes_with_planted(k, m, s, seed):
+    """k + m + 1 intact RS(k, m) stripes of s bytes; stripe i < k + m gets
+    one corrupt byte in row i, at its first byte, its last, or one in
+    its last 16 in turn; the last stripe stays intact."""
+    rng = np.random.default_rng(seed)
+    n = k + m
+    data = rng.integers(0, 256, (n + 1, k, s), dtype=np.uint8)
+    pmat = rs.parity_matrix(k, m)
+    par = np.stack([native.gf_matmul(pmat, d) for d in data])
+    st = np.concatenate([data, par], axis=1)
+    for i in range(n):
+        pos = [0, s - 1, s - 1 - int(rng.integers(1, 16))][i % 3]
+        st[i, i, pos] ^= 1 << int(rng.integers(8))
+    return st
+
+
+@pytest.mark.parametrize("k,m", [(10, 4), (4, 2), (1, 17), (17, 1), (51, 16),
+                                 (240, 16), (20, 20), (1, 1), (12, 3)])
+@pytest.mark.parametrize("s", [48, 4096 + 32])
+def test_gf_check_flags_one_corrupt_byte_in_any_row(dev, k, m, s):
+    """Every code with k + m <= 256 is checked; a one-byte corruption in
+    any row (first byte, last byte, the last 16 bytes) flips exactly its
+    stripe's flag, and a clean stripe never flips; equal to the plain
+    version on the CPU."""
+    st = _stripes_with_planted(k, m, s, seed=k * 1000 + m + s)
+    n = k + m
+    before = gf_kernel.launches["gf_check"]
+    got = rs.parity_check(k, m, torch.from_numpy(st).to(dev)).cpu()
+    rows = gf_kernel.g2_plan(n + 1, k, m, -(-s // 16) * 16, dev)[0]
+    assert gf_kernel.launches["gf_check"] - before == -(-m // rows)
+    assert got.tolist() == [False] * n + [True]
+    if s < 64:  # the plain version on the CPU, where it is quick
+        assert torch.equal(got, rs.parity_check(k, m, torch.from_numpy(st)))
+
+
+def test_gf_check_per_item_matrices_and_back_to_back(dev):
+    """Per-item parity maps (one wrong for stripe 1), then a second
+    launch on other data: the flags are each call's own."""
+    k, m, s = 10, 4, 104864
+    rng = np.random.default_rng(12)
+    data = rng.integers(0, 256, (6, k, s), dtype=np.uint8)
+    mats = np.stack([rs.parity_matrix(k, m)] * 6)
+    st = np.concatenate([data, np.stack([rs.encode_np(k, m, d)
+                                         for d in data])], axis=1)
+    mats[1, 2, 3] ^= 1
+    ok = gf_kernel.gf_check(torch.from_numpy(mats).to(dev),
+                            torch.from_numpy(st).to(dev)).cpu().tolist()
+    assert ok == [True, False, True, True, True, True]
+    st[4, k + 3, s // 2] ^= 0x20
+    ok = rs.parity_check(k, m, torch.from_numpy(st).to(dev)).cpu().tolist()
+    assert ok == [True, True, True, True, False, True]
+
+
+@pytest.mark.parametrize("shape", [(0, 14, 4096), (3, 14, 0)])
+def test_gf_check_empty_batch_or_width(dev, shape):
+    """No stripes, or stripes of no bytes: nothing to check, every stripe
+    intact, no error."""
+    st = torch.zeros(shape, dtype=torch.uint8, device=dev)
+    assert rs.parity_check(10, 4, st).cpu().tolist() == [True] * shape[0]
+
+
+@pytest.mark.parametrize("b", [8, 256])
+def test_g2_plan_rs104_is_one_launch(dev, b):
+    s = 104864
+    rows, tile, grid, units, smem = gf_kernel.g2_plan(b, 10, 4, s, dev)
+    assert rows == 4
+    assert units == b * -(-s // tile)
+    assert 1 <= grid <= units
+    assert smem >= 2 * 14 * tile

@@ -251,6 +251,24 @@ def test_parity_check_matches_reference():
     assert got == want == [[True, False, True, True]]
 
 
+def test_parity_check_wide_code_matches_reference():
+    """A scrub parity_check of erasure(20,20) stripes through the feeder
+    (G2 refused 20 parity rows before its redesign)."""
+    k, m = 20, 20
+    ref, port = _feeders(k, m)
+    stripes = []
+    for b in _blocks(3, 60, size=20 << 10):
+        data = jrs.split_stripe(b"\x00" + b, k)
+        stripes.append([bytes(s) for s in data]
+                       + [bytes(p) for p in jrs.encode_np(k, m, data)])
+    bad = bytearray(stripes[2][k + m - 1])
+    bad[-1] ^= 0x01
+    stripes[2][k + m - 1] = bytes(bad)
+    want, got = asyncio.run(_both(ref, port, lambda f: [
+        f.parity_check(stripes)]))
+    assert got == want == [[True, True, False]]
+
+
 def test_pack_shard_matches_reference():
     from garage_tpu.block.manager import pack_shard as jpack
 

@@ -218,6 +218,22 @@ def test_parity_check_matches_xla(k, m):
     assert got.tolist() == want.tolist()
 
 
+@pytest.mark.parametrize("k,m", [(1, 17), (17, 1), (51, 16), (240, 16)])
+def test_parity_check_wide_codes_match_xla(k, m):
+    """Codes past 16 parity rows or k x m > 800 (G2 refused them before
+    its tensor-core redesign): intact stripes, a corrupt data byte and
+    a corrupt parity byte, equal to the JAX package's flags."""
+    data = _data(90 + k + m, (4, k, 48))
+    stripes = np.concatenate(
+        [data, np.asarray(jrs.encode(k, m, data))], axis=1)
+    stripes[1, k - 1, 0] ^= 0x02  # the last data row's first byte
+    stripes[2, k + m - 1, 47] ^= 0x80  # the last parity row's last byte
+    want = np.asarray(jrs.parity_check(k, m, stripes))
+    got = rs.parity_check(k, m, _t(stripes)).numpy()
+    assert want.tolist() == [True, False, False, True]
+    assert got.tolist() == want.tolist()
+
+
 # ---------------------------------------------------------------------------
 # B3: BLAKE3 rows against the jitted JAX hash_fn
 # ---------------------------------------------------------------------------
