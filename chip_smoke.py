@@ -43,18 +43,31 @@ each kernel's times as one JSON line: run it for two checkouts in turns
    - repair: the 4 erased shards of every block rebuilt byte-identical.
 4. S3 path, with the launch counts set to 0 again: 14 port Garage nodes
    on cuda:0 in this process (erasure(10,4), 1 MiB blocks, loopback
-   transport), node 0's S3 front end on a loopback TCP port, a key and
-   a bucket made through the admin RPC handler; 8 client threads
+   transport); node 0 serves S3, the admin HTTP API, K2V and the web
+   front end on loopback TCP ports. Through the admin API: the key, the
+   bucket, its permissions and website access, and
+   `feeder_inflight_batches` set to 2, read back and restored to 3
+   (a host-routing floor is refused). 8 client threads
    (tests/s3util.py, an independent stdlib signer) PUT 64 objects of
    16 MiB as STREAMING-AWS4-HMAC-SHA256-PAYLOAD in 64 KiB chunks, 8
    more the same way under torch.profiler (the device's busy time and
-   idle share in that window, from the trace), 16 more with
-   UNSIGNED-PAYLOAD, GET all of them, stop 4 nodes and GET 16
-   degraded; every body and MD5 ETag is checked, and every signed
+   idle share in that window, from the trace); then /metrics must read
+   at least the feeder's own counters and 0 fallbacks. 16 more objects
+   go in with UNSIGNED-PAYLOAD; all are read back through S3, 16
+   through the web front end; the K2V round (64 items inserted, read,
+   batch-read, half overwritten in a batch, a quarter deleted, one
+   poll) checks every value; 4 nodes stop, and 16 objects are read
+   degraded through S3 and through the web front end (G1 decodes
+   counted). Every body and MD5 ETag is checked, and every signed
    chunk of the first round must have reached S2.
+   Then a feeder built from `[tpu] batch_blocks = 8, batch_linger_ms =
+   0` hashes 32 concurrent 1 MiB blocks on the card in batches of at
+   most 8.
 5. Prints the card (nvidia-smi name and power limit), the build time,
    per-kernel launches / ms / GB/s, the paths' rates and the feeders'
-   counters, B3's launches by batch size on each path, a
+   counters, B3's launches by batch size on each path, the front ends'
+   line (web and degraded web GET GB/s, K2V operations/s, admin request
+   latency, with the card's name and power limit), a
    `{"kernels": [...]}` line, and last
    `{"ok": true, "device": {...}}`.
 
@@ -143,6 +156,14 @@ S3_OBJ_SIZE = 16 << 20
 S3_CHUNK = 64 << 10
 S3_UNSIGNED = 16
 S3_CLIENTS = 8
+# node 0's other front ends: the admin HTTP API (its bearer token), the
+# web front end (website buckets under this root domain; objects read
+# through it healthy and then degraded) and K2V (items written, read,
+# batch-read, deleted and polled)
+ADMIN_TOKEN = "chip-smoke-admin-token"
+WEB_ROOT = ".web.smoke"
+S3_WEB = 16
+K2V_ITEMS = 64
 
 
 class SmokeError(Exception):
@@ -762,24 +783,181 @@ def device_busy(prof, path: str) -> dict:
             "by_kernel": by_kernel}
 
 
+class AdminApi:
+    """Blocking client of node 0's admin HTTP API (run in a client
+    thread); keeps each request's latency."""
+
+    def __init__(self, port: int):
+        self.port = port
+        self.ms: list[float] = []
+
+    def call(self, method: str, path: str, body=None) -> tuple:
+        import http.client
+
+        t = time.perf_counter()
+        conn = http.client.HTTPConnection("127.0.0.1", self.port,
+                                          timeout=60)
+        try:
+            conn.request(method, path, body=b"" if body is None
+                         else json.dumps(body).encode(),
+                         headers={"authorization": f"Bearer {ADMIN_TOKEN}"})
+            r = conn.getresponse()
+            raw = r.read()
+        finally:
+            conn.close()
+        self.ms.append((time.perf_counter() - t) * 1e3)
+        try:
+            return r.status, json.loads(raw.decode())
+        except ValueError:
+            return r.status, raw
+
+
+def admin_setup(api: AdminApi, feeder) -> tuple[str, str]:
+    """The smoke key and bucket (with website access) through the admin
+    HTTP API, and /v1/s3/tuning's `feeder_inflight_batches` set to 2,
+    read back, and restored to 3 before the timed rounds. -> (key id,
+    secret)."""
+    st, k = api.call("POST", "/v1/key", {"name": "chip-smoke"})
+    check(st == 200 and k["accessKeyId"].startswith("GK"),
+          f"admin POST /v1/key: {st} {k!r}")
+    st, b = api.call("POST", "/v1/bucket", {"globalAlias": "smoke"})
+    check(st == 200 and "id" in b, f"admin POST /v1/bucket: {st} {b!r}")
+    st, r = api.call("POST", "/v1/bucket/allow", {
+        "bucketId": b["id"], "accessKeyId": k["accessKeyId"],
+        "permissions": {"read": True, "write": True, "owner": True}})
+    check(st == 200, f"admin POST /v1/bucket/allow: {st} {r!r}")
+    st, r = api.call("PUT", f"/v1/bucket?id={b['id']}", {
+        "websiteAccess": {"enabled": True, "indexDocument": "index.html"}})
+    check(st == 200 and r["websiteAccess"] is True,
+          f"admin PUT /v1/bucket (website): {st} {r!r}")
+    for depth in (2, 3):
+        st, r = api.call("POST", "/v1/s3/tuning",
+                         {"feeder_inflight_batches": depth})
+        check(st == 200 and r["feeder_inflight_batches"] == depth
+              and feeder.inflight_batches == depth,
+              f"tuning feeder_inflight_batches={depth}: {st} {r!r}")
+        st, r = api.call("GET", "/v1/s3/tuning")
+        check(st == 200 and r["feeder_inflight_batches"] == depth,
+              f"tuning read back: {st} {r!r}")
+    st, r = api.call("POST", "/v1/s3/tuning", {"feeder_device_min_bytes": 1})
+    check(st == 400, f"tuning took a host-routing floor: {st} {r!r}")
+    return k["accessKeyId"], k["secretAccessKey"]
+
+
+def gauges(text: str) -> dict:
+    """The unlabelled samples of a Prometheus exposition."""
+    out = {}
+    for ln in text.splitlines():
+        parts = ln.split()
+        if len(parts) == 2 and not ln.startswith("#") and "{" not in ln:
+            out[parts[0]] = float(parts[1])
+    return out
+
+
+def k2v_round(port: int, key: tuple, n: int) -> dict:
+    """n items through node 0's K2V API with the port's client: insert,
+    read back, batch-read, overwrite half in one batch, delete a
+    quarter with their causality tokens, and a poll that a second
+    client's write wakes; every value is checked. -> ops and seconds."""
+    import base64
+    import threading
+
+    from garage_tpu_torch.k2v_client import K2vClient
+
+    c = K2vClient("127.0.0.1", port, "smoke", *key)
+    pk = "smoke-pk"
+    vals = {f"sk{i:04d}": f"value {i} ".encode() * (1 + i % 7)
+            for i in range(n)}
+    ops = 0
+    t = time.perf_counter()
+    for sk, v in vals.items():
+        c.insert_item(pk, sk, v)
+    ops += n
+    toks = {}
+    for sk, v in vals.items():
+        r = c.read_item(pk, sk)
+        check(r.values == [v], f"K2V read {sk}: {r.values!r}")
+        toks[sk] = r.causality
+    ops += n
+    keys = sorted(vals)
+    half = keys[: n // 2]
+    c.insert_batch([(pk, sk, b"batch " + sk.encode(), toks[sk])
+                    for sk in half])
+    ops += 1
+    for sk in half:
+        vals[sk] = b"batch " + sk.encode()
+    got = c.read_batch([{"partitionKey": pk}])[0]
+    ops += 1
+    check([(it["sk"], [base64.b64decode(v) for v in it["v"]])
+           for it in got["items"]] == [(sk, [vals[sk]]) for sk in keys],
+          "K2V batch read: values differ")
+    gone = keys[n // 2: n // 2 + n // 4]
+    for sk in gone:
+        c.delete_item(pk, sk, toks[sk])
+    ops += len(gone)
+    for sk in gone:
+        check(c.read_item(pk, sk).values == [None],
+              f"K2V {sk} not deleted")
+    ops += len(gone)
+    last = keys[-1]
+
+    def write_later() -> None:
+        time.sleep(0.2)
+        K2vClient("127.0.0.1", port, "smoke", *key).insert_item(
+            pk, last, b"polled", causality=toks[last])
+
+    th = threading.Thread(target=write_later)
+    th.start()
+    r = c.poll_item(pk, last, toks[last], timeout=30)
+    th.join()
+    ops += 2
+    check(r is not None and r.values == [b"polled"],
+          f"K2V poll: {r!r}")
+    return {"ops": ops, "s": time.perf_counter() - t}
+
+
+def web_get(port: int, i: int) -> bytes:
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        conn.request("GET", f"/o{i:04d}", headers={"host": "smoke" + WEB_ROOT})
+        r = conn.getresponse()
+        body = r.read()
+    finally:
+        conn.close()
+    check(r.status == 200, f"web GET o{i}: {r.status} {body[:300]!r}")
+    return body
+
+
 async def s3_phase(data: np.ndarray, root: str, dev, *, nodes: int = 14,
                    rf: int = S3_RF, erasure: tuple = (K, M),
                    block_size: int = BLOCK, n_objects: int = S3_OBJECTS,
                    obj_size: int = S3_OBJ_SIZE, chunk: int = S3_CHUNK,
                    n_unsigned: int = S3_UNSIGNED, n_degraded: int = 16,
-                   clients: int = S3_CLIENTS) -> dict:
-    """PUT `n_objects` objects as signed aws-chunked bodies, `clients`
-    more the same way under the profiler, and `n_unsigned` more with
-    UNSIGNED-PAYLOAD through node 0's S3 front end, GET all of them back, stop m nodes and GET `n_degraded` again;
-    every body and ETag is checked. -> rates and counters."""
+                   clients: int = S3_CLIENTS, n_web: int = S3_WEB,
+                   k2v_items: int = K2V_ITEMS) -> dict:
+    """Node 0 serves S3, the admin HTTP API, K2V and the web front end.
+    The key and bucket come from the admin API, which also sets and
+    reads back the feeder's in-flight depth. PUT `n_objects` objects as
+    signed aws-chunked bodies, `clients` more the same way under the
+    profiler (then /metrics is held against the feeder's stats), and
+    `n_unsigned` more with UNSIGNED-PAYLOAD through node 0's S3 front
+    end, GET all of them back and `n_web` through the web front end, run
+    the K2V round, stop m nodes and GET `n_degraded` again through S3
+    and `n_web` through the web front end; every body and ETag is
+    checked. -> rates and counters."""
     import concurrent.futures
-    import socket
 
     sys.path.insert(0, os.path.join(HERE, "tests"))
     from s3util import S3Client
 
+    from garage_tpu_torch.admin.http import AdminHttpServer
     from garage_tpu_torch.admin.rpc import AdminRpcHandler
+    from garage_tpu_torch.api.k2v.api_server import K2VApiServer
     from garage_tpu_torch.api.s3.api_server import S3ApiServer
+    from garage_tpu_torch.ops import kernel_launches
+    from garage_tpu_torch.web.server import WebServer
 
     check(len(data) >= (n_objects + n_unsigned) * obj_size,
           "s3 phase: not enough seeded data")
@@ -794,25 +972,23 @@ async def s3_phase(data: np.ndarray, root: str, dev, *, nodes: int = 14,
     out = {}
     loop = asyncio.get_running_loop()
     pool = concurrent.futures.ThreadPoolExecutor(clients)
-    s3 = None
+    servers = []
     try:
         t0 = time.perf_counter()
         await cluster.start()
         g0 = cluster.garages[0]
-        admin = AdminRpcHandler(g0)
-        key = await admin.op_key_new({"name": "chip-smoke"})
-        await admin.op_key_allow({"key": key["key_id"],
-                                  "create_bucket": True})
-        with socket.socket() as s:
-            s.bind(("127.0.0.1", 0))
-            port = s.getsockname()[1]
+        g0.config.admin_token = ADMIN_TOKEN
         s3 = S3ApiServer(g0)
-        await s3.start("127.0.0.1", port)
-        client = S3Client("127.0.0.1", port, key["key_id"],
-                          key["secret_key"])
-        st, _, body = await loop.run_in_executor(
-            pool, lambda: client.request("PUT", "/smoke"))
-        check(st == 200, f"CreateBucket: {st} {body[:200]!r}")
+        for srv in (s3, AdminHttpServer(g0, admin_rpc=AdminRpcHandler(g0)),
+                    K2VApiServer(g0), WebServer(g0, s3, root_domain=WEB_ROOT)):
+            await srv.start("127.0.0.1", 0)
+            servers.append(srv)
+        port, admin_port, k2v_port, web_port = (
+            srv.http.bound_port for srv in servers)
+        feeder = g0.block_manager.feeder
+        api = AdminApi(admin_port)
+        key = await loop.run_in_executor(pool, admin_setup, api, feeder)
+        client = S3Client("127.0.0.1", port, *key)
         out["boot_s"] = time.perf_counter() - t0
 
         def put_signed(i: int) -> None:
@@ -846,7 +1022,6 @@ async def s3_phase(data: np.ndarray, root: str, dev, *, nodes: int = 14,
                                    for i in idx))
             return time.perf_counter() - t
 
-        feeder = g0.block_manager.feeder
         out["put_s"] = await run(put_signed, range(n_objects))
         out["pipeline_signed"] = feeder.pipeline_stats()
         sha_items = out["pipeline_signed"]["op_items"].get("sha256", 0)
@@ -857,17 +1032,57 @@ async def s3_phase(data: np.ndarray, root: str, dev, *, nodes: int = 14,
                                  ProfilerActivity.CUDA]) as prof:
             out["put_traced_s"] = await run(put_signed, traced)
         out["busy_traced"] = device_busy(prof, os.path.join(root, "trace"))
+        # /metrics after the signed rounds: at least the feeder's own
+        # counters taken just before the scrape
+        snap = dict(feeder.stats)
+        st, text = await loop.run_in_executor(
+            pool, api.call, "GET", "/metrics")
+        check(st == 200, f"admin GET /metrics: {st}")
+        m = gauges(text.decode() if isinstance(text, bytes) else str(text))
+        for name in ("device_items", "batches"):
+            check(m.get(f"feeder_{name}", -1) >= snap[name] > 0,
+                  f"/metrics feeder_{name} {m.get(f'feeder_{name}')} "
+                  f"below the feeder's {snap[name]}")
+        check(m.get("feeder_device_fallbacks") == 0,
+              f"/metrics feeder_device_fallbacks "
+              f"{m.get('feeder_device_fallbacks')}")
+        out["metrics"] = {k: m[k] for k in (
+            "feeder_device_items", "feeder_batches",
+            "feeder_device_fallbacks")}
+        out["metrics_snapshot"] = {k: snap[k] for k in (
+            "device_items", "batches", "device_fallbacks")}
         out["put_unsigned_s"] = await run(
             put_unsigned, range(n_objects, n_objects + n_unsigned))
         out["get_s"] = await run(get, range(len(objs)))
-        # m nodes go away (never node 0, which serves S3): every block
-        # now misses the shards they held
+
+        def get_web(i: int) -> None:
+            check(web_get(web_port, i) == objs[i].tobytes(),
+                  f"web GET o{i}: bytes differ")
+
+        def launches_during(before: dict) -> dict:
+            now = kernel_launches()
+            return {k: now[k] - before.get(k, 0) for k in now
+                    if now[k] != before.get(k, 0)}
+
+        l0 = kernel_launches()
+        out["web_get_s"] = await run(get_web, range(n_web))
+        out["web_launches"] = launches_during(l0)
+        out["k2v"] = await loop.run_in_executor(
+            pool, k2v_round, k2v_port, key, k2v_items)
+        # m nodes go away (never node 0, which serves the front ends):
+        # every block now misses the shards they held
         down = list(range(nodes - erasure[1], nodes))
         for i in down:
             await cluster.stop_node(i)
         dec0 = feeder.stats["decode_device_items"]
         out["get_degraded_s"] = await run(get, range(n_degraded))
         out["degraded_decodes"] = feeder.stats["decode_device_items"] - dec0
+        dec0, l0 = feeder.stats["decode_device_items"], kernel_launches()
+        out["web_degraded_s"] = await run(get_web, range(n_web))
+        out["web_degraded_decodes"] = (feeder.stats["decode_device_items"]
+                                       - dec0)
+        out["web_degraded_launches"] = launches_during(l0)
+        out["admin_ms"] = list(api.ms)
         out["sha256_items"] = sha_items
         out["chunks_sent"] = n_objects * (-(-obj_size // chunk))
         out["stats"] = dict(feeder.stats)
@@ -879,13 +1094,49 @@ async def s3_phase(data: np.ndarray, root: str, dev, *, nodes: int = 14,
                         "put_unsigned": n_unsigned * obj_size,
                         "put_traced": clients * obj_size,
                         "get": len(objs) * obj_size,
-                        "get_degraded": n_degraded * obj_size}
+                        "get_degraded": n_degraded * obj_size,
+                        "web": n_web * obj_size}
         return out
     finally:
-        if s3 is not None:
-            await s3.stop()
+        for srv in servers:
+            await srv.stop()
         await cluster.stop()
         pool.shutdown(wait=True)
+
+
+async def tpu_knob_check(data: np.ndarray, dev, n: int = 32) -> dict:
+    """A feeder built from `[tpu] batch_blocks = 8, batch_linger_ms = 0`
+    (as a node's BlockManager builds it) takes `n` concurrent hash_md5
+    items of 1 MiB on the card and never ships a batch wider than 8;
+    every digest and MD5 is checked. -> its stats."""
+    from garage_tpu_torch import native
+    from garage_tpu_torch.block.feeder import DeviceFeeder
+    from garage_tpu_torch.utils.config import TpuConfig
+
+    # what read_config makes of a [tpu] section with these two keys
+    tpu = TpuConfig(**{"batch_blocks": 8, "batch_linger_ms": 0})
+    feeder = DeviceFeeder(max_batch=tpu.batch_blocks, device=dev,
+                          tpu_cfg=tpu)
+    check(feeder.max_batch == 8 and feeder.batch_linger == 0,
+          "[tpu] knobs not read")
+    blocks = [data[i * BLOCK:(i + 1) * BLOCK].tobytes() for i in range(n)]
+    md5s = [native.Md5() for _ in blocks]
+    feeder.active_streams = n
+    try:
+        digests = await asyncio.gather(*(
+            feeder.hash_with_md5(b, m) for b, m in zip(blocks, md5s)))
+    finally:
+        await feeder.stop()
+    check(digests == [native.blake3(b) for b in blocks],
+          "[tpu] check: content hashes differ")
+    check([m.hexdigest() for m in md5s]
+          == [hashlib.md5(b).hexdigest() for b in blocks],
+          "[tpu] check: MD5s differ")
+    st = feeder.stats
+    check(st["device_items"] == n and 0 < st["max_batch"] <= 8,
+          f"[tpu] batch_blocks = 8: device_items {st['device_items']}, "
+          f"widest batch {st['max_batch']}")
+    return dict(st)
 
 
 def geometry(name: str, r: dict) -> str:
@@ -998,6 +1249,7 @@ def main() -> int:
         s3 = asyncio.run(s3_phase(data, os.path.join(root, "s3"), dev))
         s3_launches = kernel_launches()
         s3_b3_batches = dict(sorted(treehash.batch_sizes.items()))
+        knobs = asyncio.run(tpu_knob_check(data, dev))
     finally:
         shutil.rmtree(root, ignore_errors=True)
     stats = rates["stats"]
@@ -1075,6 +1327,30 @@ def main() -> int:
     check(s3["sha256_items"] == s3["chunks_sent"],
           "a signed chunk that landed whole in a lease missed S2")
     check(s3["degraded_decodes"] > 0, "degraded GETs decoded nothing")
+    print(f"admin HTTP API: key and bucket created, website access set, "
+          f"feeder_inflight_batches set to 2 and read back, restored to 3, "
+          f"a host-routing floor refused; /metrics after the signed rounds "
+          f"{json.dumps(s3['metrics'])} against the feeder's "
+          f"{json.dumps(s3['metrics_snapshot'])}")
+    print(f"web path launches: healthy {json.dumps(s3['web_launches'])}, "
+          f"degraded {json.dumps(s3['web_degraded_launches'])} "
+          f"({s3['web_degraded_decodes']} device decodes)")
+    k2v = s3["k2v"]
+    adm = s3["admin_ms"]
+    print(f"front ends on node 0 ({smi[0]}): web GET ({S3_WEB} x "
+          f"{S3_OBJ_SIZE >> 20} MiB) {b['web'] / s3['web_get_s'] / 1e9:.3f} "
+          f"GB/s ({s3['web_get_s']:.2f} s); degraded web GET (4 nodes "
+          f"down) {b['web'] / s3['web_degraded_s'] / 1e9:.3f} GB/s "
+          f"({s3['web_degraded_s']:.2f} s), bytes equal; K2V "
+          f"{k2v['ops'] / k2v['s']:.1f} operations/s ({k2v['ops']} in "
+          f"{k2v['s']:.2f} s, values equal); admin request latency median "
+          f"{statistics.median(adm):.2f} ms, max {max(adm):.2f} ms over "
+          f"{len(adm)} requests")
+    print(f"[tpu] batch_blocks = 8, batch_linger_ms = 0 on {dev}: "
+          f"{knobs['device_items']} concurrent hash_md5 items of 1 MiB in "
+          f"{knobs['batches']} batches, widest {knobs['max_batch']}")
+    check(s3["web_degraded_decodes"] > 0,
+          "degraded web GETs decoded nothing on the device")
     for name in ("sha256_rows", "gf_apply", "blake3_rows"):
         check(s3_launches[name] > 0,
               f"kernel {name} was not launched on the S3 path")

@@ -18,6 +18,10 @@ from __future__ import annotations
 
 import torch
 
+# the JAX package's release this port serves the same API as (the admin
+# API reports it)
+__version__ = "0.4.0"
+
 
 def resolve_device(device="cuda") -> torch.device:
     """torch.device for `device`; raises if it names CUDA and none is

@@ -12,16 +12,16 @@
   JaxDeviceBackend, on one device. Its kernels are G1/G2
   (ops/gf_kernel.py), B3 (ops/treehash.py) and S2 (ops/sha256.py) on
   CUDA tensors, their plain torch versions on CPU tensors. Item counts
-  pad up the bucket ladder (PAD_BUCKETS) so the set of launch shapes
-  stays finite; shard lengths pad only to the kernels' 16-byte vector
-  width (no compile is keyed on them, so the power-of-two shard-length
-  bucket of the JAX package would only add padding); SHA-256 rows pad
-  to their group's longest message. Zero padding is safe for
-  the RS ops (the code is linear); hash pad rows are full-length zero
-  messages whose digests are sliced away. Decode/repair ship the
-  erasure pattern as DATA: each stripe's coefficient matrix rides with
-  its shards into one G1 launch, so no launch depends on which shards
-  survived.
+  pad up the bucket ladder (`[tpu] pad_buckets`, default PAD_BUCKETS)
+  so the set of launch shapes stays finite; shard lengths pad only to
+  the kernels' 16-byte vector width (no compile is keyed on them, so
+  the power-of-two shard-length bucket of the JAX package would only
+  add padding); SHA-256 rows pad to their group's longest message.
+  Zero padding is safe for the RS ops (the code is linear); hash pad
+  rows are full-length zero messages whose digests are sliced away.
+  Decode/repair ship the erasure pattern as DATA: each stripe's
+  coefficient matrix rides with its shards into one G1 launch, so no
+  launch depends on which shards survived.
 
   All three stages run on ONE CUDA stream owned by the backend
   (torch's current stream is per thread, and the stages run in three
@@ -211,8 +211,11 @@ class TorchDeviceBackend:
     methods run in StageExecutor worker threads (never the event loop),
     under the feeder's watchdog."""
 
-    def __init__(self, codec=None, device="cuda", stats: dict | None = None):
+    def __init__(self, codec=None, device="cuda", stats: dict | None = None,
+                 pad_buckets=PAD_BUCKETS):
         self.codec = codec
+        self.pad_buckets = tuple(sorted(int(b) for b in pad_buckets)) \
+            or PAD_BUCKETS
         self.device = resolve_device(device)
         self.stats = stats if stats is not None else {"pad_waste_bytes": 0}
         self._cuda = self.device.type == "cuda"
@@ -273,7 +276,7 @@ class TorchDeviceBackend:
             groups.setdefault(treehash.n_chunks_for(len(d)), []).append(i)
         staged = []
         for c, idxs in groups.items():
-            b = bucket_items(len(idxs))
+            b = bucket_items(len(idxs), self.pad_buckets)
             padded = c * treehash.CHUNK_LEN
             buf_t, buf = self._host((b, padded))
             # pad rows are full-length zero messages: a shorter pad
@@ -326,7 +329,7 @@ class TorchDeviceBackend:
 
         slens = [rs.shard_len(total_len(b), k) for b in blocks]
         smax = round_vec(max(slens))
-        bpad = bucket_items(len(blocks))
+        bpad = bucket_items(len(blocks), self.pad_buckets)
         batch_t, batch = self._host((bpad, k, smax))
         for i, b in enumerate(blocks):
             sl = slens[i]
@@ -346,7 +349,7 @@ class TorchDeviceBackend:
     def _stage_parity(self, stripes: list[list[bytes]]):
         k, m = self.codec.k, self.codec.m
         smax = round_vec(max(len(s[0]) for s in stripes))
-        bpad = bucket_items(len(stripes))
+        bpad = bucket_items(len(stripes), self.pad_buckets)
         arr_t, arr = self._host((bpad, k + m, smax))
         arr[...] = 0
         for i, s in enumerate(stripes):
@@ -374,7 +377,7 @@ class TorchDeviceBackend:
         for rows, idxs in groups.items():
             slens = [len(shards_of(items[i])[0]) for i in idxs]
             smax = round_vec(max(slens))
-            bpad = bucket_items(len(idxs))
+            bpad = bucket_items(len(idxs), self.pad_buckets)
             batch_t, batch = self._host((bpad, k, smax))
             batch[...] = 0
             # pad rows keep zero matrices: zero output rows, sliced away

@@ -15,7 +15,16 @@ host. The first request probes the device in process (torch.cuda) and
 raises to its caller if the device is absent; a device group that fails
 or hangs fails its own requests. The device route is a STAGED PIPELINE:
 each batch flows h2d -> compute -> d2h through three worker threads,
-with up to three batches in flight, under a watchdog.
+with up to `[tpu] inflight_batches` batches in flight, under a
+watchdog.
+
+The `[tpu]` knobs that mean the same on CUDA are honoured, as in the JAX
+package: `batch_blocks` (the greedy-drain cap, `max_batch`),
+`inflight_batches` (runtime-settable through the admin API's
+/v1/s3/tuning), `batch_timeout_s` (the watchdog), `batch_linger_ms`
+(the PUT lanes' gather window; 0 ships at once) and `pad_buckets` (the
+backend's item-count ladder). The routing floors, trials and mesh knobs
+have no counterpart here (model/garage.py names them when set).
 
 Ported from the JAX package's block/feeder.py; what differs: the probe,
 the backend (torch, one device, no mesh), one mode ("require": no host
@@ -33,12 +42,13 @@ from typing import Optional
 
 import torch
 
-from .device_backend import (STAGES, DevicePipeline, TorchDeviceBackend,
-                             group_bytes)
+from .device_backend import (PAD_BUCKETS, STAGES, DevicePipeline,
+                             TorchDeviceBackend, group_bytes)
 
 log = logging.getLogger("garage_tpu_torch.block.feeder")
 
-# a batch stuck longer than this means the device hung
+# defaults of the [tpu] knobs (utils/config.py TpuConfig leaves some
+# None): a batch stuck longer than the timeout means the device hung
 _BATCH_TIMEOUT = 300.0
 # batches concurrently in flight through the h2d/compute/d2h stages
 _INFLIGHT_BATCHES = 3
@@ -46,7 +56,7 @@ _INFLIGHT_BATCHES = 3
 # of these in flight per block, so lanes only line up if the dispatcher
 # lingers for the other streams' submissions
 _LINGER_OPS = ("hash_md5", "hash", "encode_put", "sha256")
-_LINGER_S = 0.006
+_LINGER_MS = 6.0
 
 
 def probe_device(device="cuda") -> dict:
@@ -97,7 +107,8 @@ class DeviceFeeder:
     JAX package's name for that rule."""
 
     def __init__(self, codec=None, mode: str = "require",
-                 max_batch: int = 256, backend=None, device="cuda"):
+                 max_batch: int = 256, backend=None, device="cuda",
+                 tpu_cfg=None):
         if mode != "require":
             raise ValueError(f"unknown feeder mode {mode!r}: the port has "
                              "only \"require\"")
@@ -105,6 +116,25 @@ class DeviceFeeder:
         self.device = device
         # greedy-drain cap: blocks per device batch ([tpu] batch_blocks)
         self.max_batch = max(1, int(max_batch))
+
+        # the other [tpu] knobs (utils/config.py TpuConfig); None or no
+        # config leaves the module default in force
+        def knob(name, default):
+            v = getattr(tpu_cfg, name, None) if tpu_cfg is not None else None
+            return default if v is None else v
+
+        # batches in flight through the stages; read at every dispatch,
+        # so a runtime change (/v1/s3/tuning) applies from the next batch
+        self.inflight_batches = max(1, int(knob("inflight_batches",
+                                                _INFLIGHT_BATCHES)))
+        # per-batch watchdog budget, seconds
+        self.batch_timeout = float(knob("batch_timeout_s", _BATCH_TIMEOUT))
+        # gather window of the PUT lanes, seconds; 0 ships at once
+        self.batch_linger = max(
+            0.0, float(knob("batch_linger_ms", _LINGER_MS))) / 1000.0
+        # item-count ladder of the backend's launch shapes
+        self.pad_buckets = tuple(
+            int(b) for b in knob("pad_buckets", PAD_BUCKETS))
         # a ready backend object (tests), else TorchDeviceBackend
         self._backend = backend
         self._backend_lock = threading.Lock()
@@ -151,7 +181,8 @@ class DeviceFeeder:
         with self._backend_lock:
             if self._backend is None:
                 self._backend = TorchDeviceBackend(
-                    codec=self.codec, device=self.device, stats=self.stats)
+                    codec=self.codec, device=self.device, stats=self.stats,
+                    pad_buckets=self.pad_buckets)
             return self._backend
 
     async def _probe(self) -> None:
@@ -328,12 +359,12 @@ class DeviceFeeder:
                     batch.append(self._q.get_nowait())
                 n_same = sum(1 for it in batch if it.op == first.op)
                 want = min(self.active_streams, 8)
-                if first.op in _LINGER_OPS \
+                if first.op in _LINGER_OPS and self.batch_linger > 0 \
                         and self.active_streams > 1 and n_same < want:
                     # several PUT streams are mid-block-loop: a short
                     # gather window lets their next submissions line up
                     loop = asyncio.get_running_loop()
-                    deadline = loop.time() + _LINGER_S
+                    deadline = loop.time() + self.batch_linger
                     while n_same < want and len(batch) < self.max_batch:
                         left = deadline - loop.time()
                         if left <= 0:
@@ -346,8 +377,8 @@ class DeviceFeeder:
                         batch.append(item)
                         if item.op == first.op:
                             n_same += 1
-                # bounded in-flight depth
-                while len(self._inflight_tasks) >= _INFLIGHT_BATCHES:
+                # bounded in-flight depth, read anew for every batch
+                while len(self._inflight_tasks) >= self.inflight_batches:
                     await asyncio.wait(self._inflight_tasks,
                                        return_when=asyncio.FIRST_COMPLETED)
                 t = asyncio.create_task(self._finish_batch(batch),
@@ -405,7 +436,7 @@ class DeviceFeeder:
         self._window_open()
         try:
             out = await asyncio.wait_for(self._staged_op(op, blobs),
-                                         _BATCH_TIMEOUT)
+                                         self.batch_timeout)
         except (asyncio.TimeoutError, _DeviceHang) as e:
             self._on_device_hang()
             err = RuntimeError(f"device {op} batch hung ({type(e).__name__})")
@@ -487,7 +518,7 @@ class DeviceFeeder:
         pl.dead = True
         pl.aborted.set()
         log.error("feeder batch stuck >%ss; pipeline generation abandoned",
-                  _BATCH_TIMEOUT)
+                  self.batch_timeout)
 
     def _window_open(self) -> None:
         if self._win_open == 0:

@@ -9,8 +9,9 @@ erasure(k, m) RS-encodes the packed block into k+m shards (kernel G1
 on the GPU) placed on k+m distinct ring nodes, and reads gather any k.
 
 What differs from the JAX package: the manager takes a torch `device`
-("cuda" unless the caller asks for "cpu") in place of the feeder mode
-and `[tpu]` knobs, and hands it to its codec and its DeviceFeeder; the
+("cuda" unless the caller asks for "cpu") in place of the feeder mode,
+and hands it to its codec and its DeviceFeeder (with the `[tpu]`
+knobs, `tpu_cfg`, that the feeder honours); the
 shard file format adds `pack_shards` (all shards of a block framed in
 one buffer, byte-identical to `pack_shard`), which the feeder's
 encode_put readback uses.
@@ -210,6 +211,7 @@ class BlockManager:
                  compression: bool = True, fsync: bool = False,
                  device="cuda",
                  device_batch_blocks: int = 256,
+                 tpu_cfg=None,
                  ram_buffer_max: int = 256 * 1024 * 1024,
                  read_cache_max_bytes: Optional[int] = None,
                  resync_breaker_aware: bool = True,
@@ -241,6 +243,7 @@ class BlockManager:
             codec=codec if isinstance(codec, ErasureCodec) else None,
             max_batch=device_batch_blocks,
             device=device,
+            tpu_cfg=tpu_cfg,
         )
         # RAM held by in-flight outbound block writes, bounded like the
         # reference's buffer_stream semaphore (ref: manager.rs:156,

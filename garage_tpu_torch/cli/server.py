@@ -4,14 +4,16 @@
 
 Builds the Garage root on `--device` ("cuda" unless "cpu" is given: the
 block math then runs each kernel's plain torch version), starts RPC
-listen + gossip + workers, then the S3 front end; exits cleanly on
+listen + gossip + workers, then every front end the config asks for:
+S3, the admin HTTP API, K2V and the web front end; exits cleanly on
 SIGINT/SIGTERM/SIGHUP. The config file format is the JAX package's.
 
-What differs from the JAX package: the port serves S3 only so far. A
-config that asks for the admin HTTP API, the K2V API, the web front end
-or `[gateway] workers` other than 1 stops at startup with an error that
-names the later slice of the port; nothing runs without them silently.
-The operator CLI (cli/main.py) reaches the node over RPC as before.
+What differs from the JAX package: a config with `[gateway] workers`
+other than 1 (the multi-process gateway) stops at startup with an error
+that names the later slice of the port, and so does `[tpu] enable =
+false` unless `--device cpu` is given (model/garage.py
+check_tpu_section); nothing runs without them silently. The operator
+CLI (cli/main.py) reaches the node over RPC as before.
 """
 
 from __future__ import annotations
@@ -24,28 +26,10 @@ import signal
 
 from ..admin.rpc import AdminRpcHandler
 from ..api.s3.api_server import S3ApiServer
-from ..model.garage import Garage, parse_addr
+from ..model.garage import Garage, check_tpu_section, parse_addr
 from ..utils.config import read_config
 
 log = logging.getLogger("garage_tpu_torch.server")
-
-# front ends of the JAX package's server that the port has not ported yet
-_LATER_SLICE = "a later slice of the port (ROADMAP: host front ends)"
-
-
-def unported_frontends(cfg) -> list[str]:
-    """Config sections asking for a front end the port does not have."""
-    out = []
-    if cfg.admin_api_bind_addr:
-        out.append("[admin] api_bind_addr (admin HTTP API)")
-    if cfg.k2v_api_bind_addr:
-        out.append("[k2v_api] api_bind_addr (K2V API)")
-    if cfg.web_bind_addr:
-        out.append("[web] bind_addr (web front end)")
-    if cfg.gateway.workers != 1:
-        out.append(f"[gateway] workers = {cfg.gateway.workers} "
-                   "(multi-process gateway)")
-    return out
 
 
 async def run_server(cfg_path: str, device="cuda") -> None:
@@ -53,11 +37,18 @@ async def run_server(cfg_path: str, device="cuda") -> None:
 
     tune()
     cfg = await asyncio.to_thread(read_config, cfg_path)
-    missing = unported_frontends(cfg)
-    if missing:
+    if cfg.gateway.workers != 1:
         raise SystemExit(
-            "garage_tpu_torch server: not ported yet, comes with "
-            f"{_LATER_SLICE}: " + "; ".join(missing))
+            "garage_tpu_torch server: not ported yet, comes with a later "
+            "slice of the port (ROADMAP: the multi-process gateway): "
+            f"[gateway] workers = {cfg.gateway.workers}")
+    from .. import resolve_device
+
+    try:
+        check_tpu_section(cfg.tpu, device)
+        resolve_device(device)  # no CUDA device: fail before booting
+    except (ValueError, RuntimeError) as e:
+        raise SystemExit(f"garage_tpu_torch server: {e}") from None
     from ..utils import lockfile
 
     # held for the server's lifetime; repair-offline/convert-db take the
@@ -71,7 +62,7 @@ async def run_server(cfg_path: str, device="cuda") -> None:
 
 async def _run_server_locked(cfg, device) -> None:
     garage = Garage(cfg, device=device)
-    AdminRpcHandler(garage)  # serves the operator CLI's RPC endpoint
+    admin = AdminRpcHandler(garage)  # also serves the CLI's RPC endpoint
     otlp = None
     if cfg.admin_trace_sink:
         from ..utils.otlp import setup_otlp
@@ -89,15 +80,38 @@ async def _run_server_locked(cfg, device) -> None:
         except NotImplementedError:
             pass
 
+    async def start_frontend(srv, bind: str) -> None:
+        # bind addr is "host:port" or an absolute path -> Unix socket
+        if bind.startswith("/"):
+            await srv.start(bind)
+        else:
+            await srv.start(*parse_addr(bind))
+
     system_task = asyncio.create_task(garage.run())
+    servers = []
     s3 = None
     if cfg.s3_api_bind_addr:
         s3 = S3ApiServer(garage)
-        # bind addr is "host:port" or an absolute path -> Unix socket
-        if cfg.s3_api_bind_addr.startswith("/"):
-            await s3.start(cfg.s3_api_bind_addr)
-        else:
-            await s3.start(*parse_addr(cfg.s3_api_bind_addr))
+        await start_frontend(s3, cfg.s3_api_bind_addr)
+        servers.append(s3)
+    if cfg.admin_api_bind_addr:
+        from ..admin.http import AdminHttpServer
+
+        ad = AdminHttpServer(garage, admin_rpc=admin)
+        await start_frontend(ad, cfg.admin_api_bind_addr)
+        servers.append(ad)
+    if cfg.k2v_api_bind_addr:
+        from ..api.k2v.api_server import K2VApiServer
+
+        k2v = K2VApiServer(garage)
+        await start_frontend(k2v, cfg.k2v_api_bind_addr)
+        servers.append(k2v)
+    if cfg.web_bind_addr:
+        from ..web.server import WebServer
+
+        web = WebServer(garage, s3)
+        await start_frontend(web, cfg.web_bind_addr)
+        servers.append(web)
 
     log.info("node %s up (rpc %s, device %s)", garage.system.id.hex()[:16],
              cfg.rpc_bind_addr, device)
@@ -105,8 +119,8 @@ async def _run_server_locked(cfg, device) -> None:
           flush=True)
     await stop.wait()
     log.info("shutting down")
-    if s3 is not None:
-        await s3.stop()
+    for s in servers:
+        await s.stop()
     await garage.stop()
     system_task.cancel()
     if otlp is not None:
@@ -127,10 +141,8 @@ def main() -> None:
         level=getattr(logging, args.log_level.upper(), logging.INFO),
         format="%(asctime)s %(levelname)s %(name)s: %(message)s",
     )
-    from .. import resolve_device
     from ..utils.lockfile import AlreadyLocked
 
-    resolve_device(args.device)  # no CUDA device: fail before booting
     try:
         asyncio.run(run_server(args.config, args.device))
     except AlreadyLocked as e:

@@ -3,9 +3,13 @@
 
 What differs from the JAX package: Garage takes a torch `device`
 ("cuda" unless the caller asks for "cpu") and hands it to the
-BlockManager, in place of the feeder mode and `[tpu]` knobs. The config
-file format is the JAX package's, so one garage.toml serves both
-packages: the `[tpu]` section is parsed and not used.
+BlockManager in place of the feeder mode. The config file format is the
+JAX package's, so one garage.toml serves both packages. Of `[tpu]`, the
+feeder honours `batch_blocks`, `inflight_batches`, `batch_timeout_s`,
+`batch_linger_ms` and `pad_buckets`; `enable = false` (the JAX
+package's host-only node) is refused unless the device is the CPU; the
+routing floors, trials, mesh and platform keys have no meaning on the
+port and are named in one warning when set (`check_tpu_section`).
 
 Ref parity: src/model/garage.rs:37-334. Opens the db, builds the
 System/NetApp, the BlockManager, and all tables with their replication
@@ -22,9 +26,12 @@ Replication parameter table (ref: garage.rs:154-170):
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import logging
 import os
 from typing import Optional
+
+import torch
 
 from ..block.layout import DataDir as LayoutDataDir
 from ..block.layout import DataLayout
@@ -39,7 +46,7 @@ from ..table.replication import (TableFullReplication,
                                  TableShardedReplication)
 from ..table.table import Table
 from ..utils.background import BackgroundRunner, BgVars
-from ..utils.config import Config
+from ..utils.config import Config, TpuConfig
 from ..utils.persister import Persister
 from .bucket_alias_table import BucketAliasTable
 from .bucket_table import BucketTable
@@ -59,6 +66,29 @@ def parse_addr(s: str) -> tuple[str, int]:
     return (host.strip("[]"), int(port))
 
 
+# [tpu] keys the port acts on; every other key of TpuConfig (the host
+# routing floors, calibration trials, mesh, platform and backend
+# selection) has no counterpart on a CUDA node
+_TPU_HONOURED = ("enable", "batch_blocks", "inflight_batches",
+                "batch_timeout_s", "batch_linger_ms", "pad_buckets")
+
+
+def check_tpu_section(tpu: TpuConfig, device) -> list[str]:
+    """Refuse `[tpu] enable = false` on a device other than the CPU (the
+    JAX package runs such a node host-only; the port has no host route
+    and never moves to the CPU by itself) and return the keys set to a
+    non-default value that the port ignores."""
+    if not tpu.enable and torch.device(device).type != "cpu":
+        raise ValueError(
+            "[tpu] enable = false asks for a host-only node, which the "
+            "port does not have: its block math runs on the device; "
+            "pass --device cpu (device=\"cpu\") to run it on the CPU")
+    default = TpuConfig()
+    return sorted(f.name for f in dataclasses.fields(TpuConfig)
+                  if f.name not in _TPU_HONOURED
+                  and getattr(tpu, f.name) != getattr(default, f.name))
+
+
 def parse_peer(s: str) -> tuple[tuple[str, int], Optional[bytes]]:
     """"<hex node id>@host:port" or "host:port" -> (addr, id|None)."""
     if "@" in s:
@@ -72,6 +102,10 @@ class Garage:
                  status_interval: Optional[float] = None,
                  ping_interval: Optional[float] = None,
                  device="cuda"):
+        ignored = check_tpu_section(config.tpu, device)
+        if ignored:
+            log.warning("[tpu] keys with no meaning on the port, ignored: "
+                        "%s", ", ".join(ignored))
         self.config = config
         self.bg_vars = BgVars()
         from ..utils.data import set_content_hash_algo
@@ -142,6 +176,8 @@ class Garage:
             compression=config.compression_level is not None,
             fsync=config.data_fsync,
             device=device,
+            device_batch_blocks=config.tpu.batch_blocks,
+            tpu_cfg=config.tpu,
             ram_buffer_max=config.block_ram_buffer_max,
             read_cache_max_bytes=config.block_read_cache_max_bytes,
             resync_breaker_aware=config.block_resync_breaker_aware,

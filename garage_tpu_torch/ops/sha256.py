@@ -127,11 +127,24 @@ def sha256_hex_py(data) -> str:
 _M32 = 0xFFFFFFFF
 
 
+# the rounds' shift counts and mask as 0-dim int64 tensors: a round is
+# ~28 operations on (B,) tensors, so at small B the call overhead is the
+# time, and Tensor methods with tensor operands (in place on their own
+# temporaries) cost about half of the Python operators with int operands
+_C = {n: torch.tensor(n, dtype=torch.int64) for n in (2, 6, 11, 13, 22, 25,
+                                                      32)}
+_CM32 = torch.tensor(_M32, dtype=torch.int64)
+
+
 def _rotr3(x, r1: int, r2: int, r3: int):
-    """rotr(x, r1) ^ rotr(x, r2) ^ rotr(x, r3) for int64 x in [0, 2^32):
-    the word doubled into 64 bits rotates by a plain right shift."""
-    x2 = x | (x << 32)
-    return ((x2 >> r1) ^ (x2 >> r2) ^ (x2 >> r3)) & _M32
+    """rotr(x, r1) ^ rotr(x, r2) ^ rotr(x, r3) for int64 x in [0, 2^32),
+    in the low 32 bits (the high bits are left over, for a sum that is
+    masked later): the word doubled into 64 bits rotates by a plain
+    right shift."""
+    x2 = x.bitwise_left_shift(_C[32]).bitwise_or_(x)
+    return x2.bitwise_right_shift(_C[r1]) \
+        .bitwise_xor_(x2.bitwise_right_shift(_C[r2])) \
+        .bitwise_xor_(x2.bitwise_right_shift(_C[r3]))
 
 
 def _sigma(x, r1: int, r2: int, s: int):
@@ -157,17 +170,27 @@ def hash_rows_plain(msgs: torch.Tensor, nblocks: torch.Tensor) -> torch.Tensor:
                       + sched[t - 7] + _sigma(sched[t - 2], 17, 19, 10))
                      & _M32)
     kt = torch.tensor(K.astype(np.int64), device=dev)
-    kw = [sched[t] + kt[t] for t in range(64)]  # (blocks, B) each
+    # K + W for every round of every block: (blocks, 64, B)
+    kw = (torch.stack(sched, dim=1) + kt[:, None]).unbind(0)
     h = [torch.full((b,), int(v), dtype=torch.int64, device=dev)
          for v in H0]
     for blk in range(nmax):
         a, bb, c, d, e, f, g, hh = h
-        for t in range(64):
-            t1 = hh + _rotr3(e, 6, 11, 25) + ((e & (f ^ g)) ^ g) \
-                + kw[t][blk]
-            t2 = _rotr3(a, 2, 13, 22) + ((a & bb) | (c & (a | bb)))
-            hh, g, f, e = g, f, e, (d + t1) & _M32
-            d, c, bb, a = c, bb, a, (t1 + t2) & _M32
+        # maj(a, b, c) = b ^ ((a ^ b) & (b ^ c)), and this round's a ^ b
+        # is the next round's b ^ c; sums keep their high bits until
+        # the two masks that make the new e and a words
+        bc = bb ^ c
+        for kwt in kw[blk].unbind(0):
+            # t1 = h + S1(e) + ch(e, f, g) + K + W; t2 = S0(a) + maj
+            t1 = hh.add(_rotr3(e, 6, 11, 25)) \
+                .add_(f.bitwise_xor(g).bitwise_and_(e).bitwise_xor_(g)) \
+                .add_(kwt)
+            ab = a.bitwise_xor(bb)
+            t2 = _rotr3(a, 2, 13, 22) \
+                .add_(ab.bitwise_and(bc).bitwise_xor_(bb))
+            hh, g, f, e = g, f, e, d.add(t1).bitwise_and_(_CM32)
+            d, c, bb, a = c, bb, a, t1.add_(t2).bitwise_and_(_CM32)
+            bc = ab
         live = blk < nblocks
         h = [torch.where(live, (x + y) & _M32, x)
              for x, y in zip(h, (a, bb, c, d, e, f, g, hh))]

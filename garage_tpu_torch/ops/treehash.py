@@ -148,35 +148,51 @@ def blake3_py(data: bytes) -> bytes:
 # (8, L), messages (16, L), as in the JAX package's lane-major layout.
 
 
+@functools.lru_cache(maxsize=1)
+def _g_index() -> tuple[tuple[list[int], list[int]], ...]:
+    """Per round, the message words of the column step's four G and of
+    the diagonal step's four G: ((x, y) columns, (x, y) diagonals)."""
+    return tuple(((list(s[0:8:2]), list(s[1:8:2])),
+                  (list(s[8:16:2]), list(s[9:16:2])))
+                 for s in _schedules())
+
+
 def _compress_lanes(h, m, counter, block_len, flags):
-    """h (8, L), m (16, L), counter/block_len/flags (L,) int64 -> (8, L)."""
-    v = list(h) + [torch.full_like(h[0], IV[i]) for i in range(4)] + [
-        counter.expand_as(h[0]), torch.zeros_like(h[0]),
-        block_len.expand_as(h[0]), flags.expand_as(h[0])]
+    """h (8, L), m (16, L), counter/block_len/flags (L,) int64 -> (8, L).
+
+    The state is four rows of four words, (4, 4, L): a column step is
+    one G on rows a, b, c, d; a diagonal step is the same G after rows
+    b, c, d turn left by 1, 2 and 3 words (and turn back after it), so
+    each step is one set of tensor operations for all four G."""
+    lanes = h.shape[1]
+    v = torch.cat([h, torch.tensor(IV[:4], dtype=torch.int64,
+                                   device=h.device)[:, None].expand(4, lanes),
+                   torch.stack([counter.expand(lanes),
+                                torch.zeros_like(h[0]),
+                                block_len.expand(lanes),
+                                flags.expand(lanes)])]).reshape(4, 4, lanes)
+    a, b, c, d = v.unbind(0)
 
     def rotr(x, n):
         return ((x >> n) | (x << (32 - n))) & _M32
 
     def g(a, b, c, d, mx, my):
-        v[a] = (v[a] + v[b] + mx) & _M32
-        v[d] = rotr(v[d] ^ v[a], 16)
-        v[c] = (v[c] + v[d]) & _M32
-        v[b] = rotr(v[b] ^ v[c], 12)
-        v[a] = (v[a] + v[b] + my) & _M32
-        v[d] = rotr(v[d] ^ v[a], 8)
-        v[c] = (v[c] + v[d]) & _M32
-        v[b] = rotr(v[b] ^ v[c], 7)
+        a = (a + b + mx) & _M32
+        d = rotr(d ^ a, 16)
+        c = (c + d) & _M32
+        b = rotr(b ^ c, 12)
+        a = (a + b + my) & _M32
+        d = rotr(d ^ a, 8)
+        c = (c + d) & _M32
+        b = rotr(b ^ c, 7)
+        return a, b, c, d
 
-    for s in _schedules():
-        g(0, 4, 8, 12, m[s[0]], m[s[1]])
-        g(1, 5, 9, 13, m[s[2]], m[s[3]])
-        g(2, 6, 10, 14, m[s[4]], m[s[5]])
-        g(3, 7, 11, 15, m[s[6]], m[s[7]])
-        g(0, 5, 10, 15, m[s[8]], m[s[9]])
-        g(1, 6, 11, 12, m[s[10]], m[s[11]])
-        g(2, 7, 8, 13, m[s[12]], m[s[13]])
-        g(3, 4, 9, 14, m[s[14]], m[s[15]])
-    return torch.stack([v[i] ^ v[i + 8] for i in range(8)])
+    for (cx, cy), (dx, dy) in _g_index():
+        a, b, c, d = g(a, b, c, d, m[cx], m[cy])
+        b, c, d = (b.roll(-1, 0), c.roll(-2, 0), d.roll(-3, 0))
+        a, b, c, d = g(a, b, c, d, m[dx], m[dy])
+        b, c, d = (b.roll(1, 0), c.roll(2, 0), d.roll(3, 0))
+    return torch.cat([a ^ c, b ^ d])
 
 
 def _iv_lanes(n: int, device) -> torch.Tensor:
@@ -200,7 +216,8 @@ def hash_rows_plain(msgs: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
                   * CHUNK_LEN).clamp(0, CHUNK_LEN).reshape(b * c)
     n_blocks = ((chunk_lens + BLOCK_LEN - 1) // BLOCK_LEN).clamp(min=1)
     cv = _iv_lanes(b * c, dev)
-    for pos in range(BLOCKS_PER_CHUNK):
+    # positions past every chunk's last block change nothing
+    for pos in range(int(n_blocks.max())):
         blen = (chunk_lens - pos * BLOCK_LEN).clamp(0, BLOCK_LEN)
         is_end = n_blocks - 1 == pos
         flags = (CHUNK_START if pos == 0 else 0) + is_end.to(torch.int64) * (

@@ -7,10 +7,15 @@ issue and PR tags dropped from its comments (the port's program text
 cites no issue or PR numbers; every line keeps its place), and one
 provenance line opening its docstring; nothing else may differ. This
 keeps the copies reviewable and stops them drifting from the JAX
-package."""
+package.
+
+`load_reference_suite` applies the same import rewrite to a test module
+of the JAX package, so that its tests run against the port (the
+test_torch_s3_api, test_torch_s3_fastpath and test_torch_k2v files)."""
 
 from __future__ import annotations
 
+import ast
 import os
 import re
 
@@ -23,7 +28,7 @@ REF = os.path.join(REPO, "garage_tpu")
 # modules the port wrote or changed (their own docstrings say what
 # differs), relative to the package root
 PORTED = {
-    "__init__.py", "weights.py",
+    "__init__.py", "weights.py", "admin/http.py",
     "ops/__init__.py", "ops/_build.py", "ops/gf256.py", "ops/gf_kernel.py",
     "ops/rs.py", "ops/treehash.py", "ops/sha256.py",
     "block/codec.py", "block/device_backend.py", "block/feeder.py",
@@ -57,6 +62,47 @@ def copy_text(ref_text: str, rel: str) -> str:
     if text.startswith('"""'):
         return '"""' + line + "\n\n" + text[3:]
     return '"""' + line + '"""\n\n' + text
+
+
+# how a reference suite starts one of the port's entry points: as a
+# module run with jax and garage_tpu unimportable, so that nothing of the
+# JAX package serves the test
+PORT_MAIN = ("import runpy, sys; sys.modules['jax'] = None; "
+             "sys.modules['garage_tpu'] = None; "
+             "runpy.run_module({mod!r}, run_name='__main__')")
+_RUN_MODULE = re.compile(
+    r'\[sys\.executable, "-m", "(garage_tpu_torch\.[\w.]+)"')
+
+
+def load_reference_suite(name: str, namespace: dict, edits=(),
+                         n_entry_points: int = 0) -> None:
+    """Execute the JAX package's tests/<name>.py into `namespace` (a test
+    module's globals), so that pytest collects its tests and fixtures
+    there, against the port. The text gets copy_text's import rewrite;
+    every `[sys.executable, "-m", "garage_tpu_torch.<mod>"` command (there
+    must be `n_entry_points`) becomes the port's module run with jax and
+    garage_tpu blocked; then each (old, new) of `edits` is applied and
+    must match exactly once. The reference module itself is never
+    imported or changed. Asserts are rewritten as pytest does for a test
+    file; tracebacks name the reference file's lines."""
+    from _pytest.assertion.rewrite import rewrite_asserts
+
+    path = os.path.join(REPO, "tests", name + ".py")
+    with open(path) as f:
+        text = _REWRITE.sub("garage_tpu_torch", f.read())
+    text, n = _RUN_MODULE.subn(
+        lambda m: ('[sys.executable, "-c", '
+                   f'PORT_MAIN.format(mod={m.group(1)!r})'), text)
+    assert n == n_entry_points, (name, n)
+    for old, new in edits:
+        assert text.count(old) == 1, (name, old)
+        text = text.replace(old, new)
+    tree = ast.parse(text, path)
+    rewrite_asserts(tree, text.encode(), path)
+    doc = namespace.get("__doc__")
+    namespace["PORT_MAIN"] = PORT_MAIN
+    exec(compile(tree, path, "exec", dont_inherit=True), namespace)
+    namespace["__doc__"] = doc
 
 
 def _modules():

@@ -82,15 +82,37 @@ sys.modules["garage_tpu"] = None
 sys.path.insert(0, os.path.join(os.getcwd(), "tests"))
 import torch
 torch.set_num_threads(1)
+import http.client
 import garage_tpu_torch.api.s3.api_server
+import garage_tpu_torch.cli.k2v
 import garage_tpu_torch.cli.main
 import garage_tpu_torch.cli.server
+import garage_tpu_torch.utils.tranquilizer
+from garage_tpu_torch.admin.http import AdminHttpServer
 from garage_tpu_torch.admin.rpc import AdminRpcHandler
+from garage_tpu_torch.api.k2v import K2VApiServer
 from garage_tpu_torch.api.s3.api_server import S3ApiServer
+from garage_tpu_torch.k2v_client import K2vClient
+from garage_tpu_torch.web import WebServer
 from garage_tpu_torch.model.garage import Garage
 from garage_tpu_torch.rpc.layout import NodeRole
 from garage_tpu_torch.utils.config import Config, DataDir
 from s3util import S3Client
+
+
+WEBSITE = (b'<WebsiteConfiguration xmlns="http://s3.amazonaws.com/doc/'
+           b'2006-03-01/"><IndexDocument><Suffix>index.html</Suffix>'
+           b'</IndexDocument></WebsiteConfiguration>')
+
+
+def get(port, path, host):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("GET", path, headers={"host": host})
+        r = conn.getresponse()
+        return r.status, r.read()
+    finally:
+        conn.close()
 
 
 async def main(tmp):
@@ -107,8 +129,12 @@ async def main(tmp):
     key = await admin.op_key_new({"name": "t"})
     await admin.op_key_allow({"key": key["key_id"], "create_bucket": True})
     s3 = S3ApiServer(g)
-    await s3.start("127.0.0.1", 0)
-    port = s3.http.bound_port
+    servers = [s3, AdminHttpServer(g, admin_rpc=admin), K2VApiServer(g),
+               WebServer(g, s3, root_domain=".web")]
+    for srv in servers:
+        await srv.start("127.0.0.1", 0)
+    port, admin_port, k2v_port, web_port = (srv.http.bound_port
+                                            for srv in servers)
     c = S3Client("127.0.0.1", port, key["key_id"], key["secret_key"])
     # one 64 KiB chunk, the size at which the verifier hands a chunk's
     # digest to the feeder, and a short one that it hashes on the host
@@ -121,12 +147,23 @@ async def main(tmp):
             hashlib.md5(body).hexdigest(), (st, hdr)
         st, _, got = c.request("GET", "/bkt/o")
         assert st == 200 and got == body
+        # the other front ends: web, K2V and the admin API's metrics
+        assert c.request("PUT", "/bkt", query=[("website", "")],
+                         body=WEBSITE)[0] == 200
+        assert get(web_port, "/o", "bkt.web") == (200, body)
+        k = K2vClient("127.0.0.1", k2v_port, "bkt", key["key_id"],
+                      key["secret_key"])
+        k.insert_item("pk", "sk", b"v")
+        assert k.read_item("pk", "sk").values == [b"v"]
+        st, text = get(admin_port, "/metrics", "localhost")
+        assert st == 200 and b"feeder_device_items" in text
 
     await asyncio.to_thread(client)
     feeder = g.block_manager.feeder
     assert feeder.stats["device_items"] > 0
     assert feeder.pipeline_stats()["op_items"].get("sha256", 0) >= 1
-    await s3.stop()
+    for srv in servers:
+        await srv.stop()
     await g.stop()
     task.cancel()
     await asyncio.gather(task, return_exceptions=True)
@@ -142,8 +179,10 @@ print("S3 OK")
 
 
 def test_s3_entry_points_put_get_without_jax():
-    """The server entry, the CLI and the S3 front end import with jax
-    and garage_tpu blocked, and one PUT/GET runs on the CPU."""
+    """The server entry, the CLIs and the S3, admin, K2V and web front
+    ends import with jax and garage_tpu blocked, one PUT/GET runs on the
+    CPU, and the object reads back through the web front end, a K2V
+    item round-trips and the admin API serves the feeder's metrics."""
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run([sys.executable, "-c", _S3_CHILD], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=300)

@@ -1,8 +1,10 @@
 """The port's S3 slice as a whole, on the CPU: a forked port server
 (`garage_tpu_torch.cli.server --device cpu`, with jax and garage_tpu
 blocked in the child) set up through the port's CLI, driven with the
-independent signer in tests/s3util.py; and the node's on-disk state
-read back across the two packages in both directions.
+independent signer in tests/s3util.py; the node's on-disk state (S3
+objects and K2V items) read back across the two packages in both
+directions; and the server's other front ends (admin HTTP API, K2V,
+web), each answering from a node booted with only its section.
 
 Stages share one set of node directories (one garage.toml serves both
 packages): the port server, then the JAX package's server on the same
@@ -28,14 +30,11 @@ import numpy as np
 import pytest
 
 from s3util import S3Client, xml_find
+# the port's entry points, run with jax and garage_tpu unimportable
+from test_torch_copies import PORT_MAIN as _BLOCKED
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHUNK = 64 << 10
-
-# the port's entry points, run with jax and garage_tpu unimportable
-_BLOCKED = ("import runpy, sys; sys.modules['jax'] = None; "
-            "sys.modules['garage_tpu'] = None; "
-            "runpy.run_module({mod!r}, run_name='__main__')")
 
 
 def free_port() -> int:
@@ -60,6 +59,7 @@ class Node:
         self.dir = tmpdir
         self.rpc_port = free_port()
         self.s3_port = free_port()
+        self.k2v_port = free_port()
         self.config_path = os.path.join(tmpdir, "garage.toml")
         with open(self.config_path, "w") as f:
             f.write(f"""
@@ -74,6 +74,9 @@ rpc_public_addr = "127.0.0.1:{self.rpc_port}"
 api_bind_addr = "127.0.0.1:{self.s3_port}"
 s3_region = "garage"
 root_domain = ".s3.garage.test"
+
+[k2v_api]
+api_bind_addr = "127.0.0.1:{self.k2v_port}"
 """)
         self.proc = None
         self.package = None
@@ -126,6 +129,7 @@ root_domain = ".s3.garage.test"
         secret = next(ln.split()[-1] for ln in out.splitlines()
                       if ln.startswith("Secret key:"))
         self.cli("key", "allow", kid, "--create-bucket")
+        self.key = (kid, secret)
         self.client = S3Client("127.0.0.1", self.s3_port, kid, secret)
         st, _, body = self.client.request("PUT", "/bkt")
         assert st == 200, body
@@ -250,6 +254,34 @@ def test_objects_read_back_across_packages(node, port):
     _get(c, "/bkt/from-jax", b)
     _get(c, "/bkt/same-request", a)
     _get(c, "/bkt/from-port", a)
+
+
+def test_k2v_items_read_back_across_packages(node, port):
+    """K2V items written through the port server read back through the
+    JAX package's server on the same directories, and the other way
+    round, causality tokens included."""
+    from garage_tpu_torch.k2v_client import K2vClient
+
+    assert port.request("PUT", "/k2vbkt")[0] == 200
+    c = K2vClient("127.0.0.1", node.k2v_port, "k2vbkt", *node.key)
+    c.insert_item("users", "alice", b"from-port")
+    c.insert_batch([("users", "bob", b"bob-port", None)])
+
+    node.start("jax")
+    alice = c.read_item("users", "alice")
+    assert alice.values == [b"from-port"]
+    assert c.read_item("users", "bob").values == [b"bob-port"]
+    c.insert_item("users", "alice", b"from-jax", causality=alice.causality)
+    c.insert_item("users", "carol", b"carol-jax")
+
+    node.start("port")
+    assert c.read_item("users", "alice").values == [b"from-jax"]
+    assert c.read_item("users", "carol").values == [b"carol-jax"]
+    got = c.read_batch([{"partitionKey": "users"}])[0]
+    assert [(it["sk"], it["v"]) for it in got["items"]] == [
+        ("alice", [base64.b64encode(b"from-jax").decode()]),
+        ("bob", [base64.b64encode(b"bob-port").decode()]),
+        ("carol", [base64.b64encode(b"carol-jax").decode()])]
 
 
 # ---------------------------------------------------------------------------
@@ -395,15 +427,99 @@ def test_server_runs_on_cuda_unless_asked_for_the_cpu(tmp_path):
     assert not (tmp_path / "meta").exists()
 
 
-@pytest.mark.parametrize("section", [
-    '[admin]\napi_bind_addr = "127.0.0.1:0"\n',
-    '[k2v_api]\napi_bind_addr = "127.0.0.1:0"\n',
-    '[web]\nbind_addr = "127.0.0.1:0"\nroot_domain = ".web"\n',
-    '[gateway]\nworkers = 2\n',
-], ids=["admin", "k2v", "web", "gateway"])
+def _answer(port: int, path: str, host: str = "127.0.0.1"):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+    try:
+        conn.request("GET", path, headers={"host": host})
+        r = conn.getresponse()
+        return r.status, r.read().decode()
+    finally:
+        conn.close()
+
+
+def _check_admin(port):
+    # a node with no layout yet: the health answer says so
+    assert _answer(port, "/health") == (503, "unavailable\n")
+    st, text = _answer(port, "/metrics")
+    assert st == 200
+    names = {ln.split("{")[0].split()[0] for ln in text.splitlines()
+             if ln.startswith("feeder_")}
+    assert {"feeder_batches", "feeder_device_items", "feeder_max_batch",
+            "feeder_device_fallbacks", "feeder_decode_device_items",
+            "feeder_overlap_efficiency"} <= names
+    # events the port does not have are not reported
+    assert not names & {"feeder_throughput_mbps", "feeder_inline_items",
+                        "feeder_recompiles", "feeder_mesh_batches"}
+
+
+def _check_k2v(port):
+    # an unsigned request: the K2V front end refuses it in its own terms
+    st, body = _answer(port, "/somebucket?search")
+    assert st == 403 and "AccessDenied" in body
+
+
+def _check_web(port):
+    st, body = _answer(port, "/index.html", host="nobucket.web")
+    assert st == 404 and "NoSuchBucket" in body
+
+
+@pytest.mark.parametrize("section,check", [
+    ('[admin]\napi_bind_addr = "127.0.0.1:{port}"\n', _check_admin),
+    ('[k2v_api]\napi_bind_addr = "127.0.0.1:{port}"\n', _check_k2v),
+    ('[web]\nbind_addr = "127.0.0.1:{port}"\nroot_domain = ".web"\n',
+     _check_web),
+], ids=["admin", "k2v", "web"])
+def test_server_serves_front_end(tmp_path, section, check):
+    """A port server booted with one front end's section (on the CPU)
+    answers on that front end."""
+    port = free_port()
+    cfg = tmp_path / "garage.toml"
+    cfg.write_text(_MIN_CONFIG.format(tmp=tmp_path)
+                   + section.format(port=port))
+    env = dict(os.environ, PYTHONPATH=REPO, PYTHONUNBUFFERED="1",
+               OMP_NUM_THREADS="1")
+    proc = subprocess.Popen(
+        [sys.executable, "-c",
+         _BLOCKED.format(mod="garage_tpu_torch.cli.server"),
+         "--config", str(cfg), "--device", "cpu", "--log-level", "warning"],
+        cwd=REPO, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    try:
+        while True:
+            line = proc.stdout.readline()
+            if "ready" in line:
+                break
+            if not line and proc.poll() is not None:
+                raise AssertionError("port server died: "
+                                     + proc.stdout.read())
+        check(port)
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=20)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        proc.stdout.close()
+    assert proc.returncode == 0
+
+
+@pytest.mark.parametrize("section", ['[gateway]\nworkers = 2\n'],
+                         ids=["gateway"])
 def test_server_refuses_front_ends_it_has_not_ported(tmp_path, section):
     r = _server_exit(_MIN_CONFIG + section, tmp_path, "--device", "cpu")
     assert r.returncode != 0
     out = r.stdout + r.stderr
     assert "not ported yet" in out and "later slice" in out
+    assert not (tmp_path / "meta").exists()
+
+
+def test_server_refuses_tpu_enable_false_off_the_cpu(tmp_path):
+    """`[tpu] enable = false` without --device cpu stops before booting,
+    with an error that names the key (never a quiet move to the CPU)."""
+    r = _server_exit(_MIN_CONFIG + "[tpu]\nenable = false\n", tmp_path)
+    assert r.returncode != 0
+    assert "[tpu] enable = false" in r.stdout + r.stderr
     assert not (tmp_path / "meta").exists()
