@@ -63,7 +63,28 @@ each kernel's times as one JSON line: run it for two checkouts in turns
    Then a feeder built from `[tpu] batch_blocks = 8, batch_linger_ms =
    0` hashes 32 concurrent 1 MiB blocks on the card in batches of at
    most 8.
-5. Prints the card (nvidia-smi name and power limit), the build time,
+5. Grid phase (parallel/mesh.py), with the launch counts set to 0 again:
+   the put, scrub and repair steps on 16 RS(10,4) stripes of 105,472 B
+   a shard (a 1 MiB block's shard rounded up to BLAKE3's chunk), at dp =
+   1 and on the grid [cuda:0, cuda:0] at (dp, tp) = (2, 1) and (1, 2):
+   every output byte-equal to the plain composition on the card (held
+   against the host RS oracle and the native BLAKE3), one planted
+   corruption flagged by the scrub step, each step's launches and wall
+   ms printed; then a feeder on that grid (dp = 2, `mesh_min_items` 8)
+   encodes, parity-checks, decodes and repairs 16 blocks through the
+   grid route, byte-equal to the one-device route.
+6. Gateway phase: the S3 phase's deployment as 14 processes of
+   `python -m garage_tpu_torch.cli.server --device cuda`; node 0 runs
+   the admin API and 4 gateway worker processes on the card, through
+   which 8 client threads PUT 16 x 16 MiB signed (64 KiB aws-chunks)
+   and 16 unsigned, and GET all back byte for byte; one worker is
+   SIGKILLed a quarter into a round of 16 more PUTs: every request must
+   succeed within the client's retries, the worker come back ready and
+   the lease conservation gauge read 1 throughout; every live worker's
+   feeder must show device items and no fallback (node 0's /metrics,
+   worker-labelled), and the kernels must have launched in the workers.
+   The card's free memory is read before and after the boot.
+7. Prints the card (nvidia-smi name and power limit), the build time,
    per-kernel launches / ms / GB/s, the paths' rates and the feeders'
    counters, B3's launches by batch size on each path, the front ends'
    line (web and degraded web GET GB/s, K2V operations/s, admin request
@@ -164,6 +185,19 @@ ADMIN_TOKEN = "chip-smoke-admin-token"
 WEB_ROOT = ".web.smoke"
 S3_WEB = 16
 K2V_ITEMS = 64
+# grid phase: the split steps (parallel/mesh.py) on RS(10,4) stripes of
+# 1 MiB blocks; a shard is 104,864 B, rounded up to BLAKE3's 1,024-byte
+# chunk, as the put, scrub and repair steps need
+GRID_B = 16
+GRID_S = 103 * 1024
+GRID_REPAIR = ((0, 1, 2, 4, 5, 6, 8, 9, 10, 12), (3, 7, 11, 13))
+# gateway phase: the S3 phase's deployment as 14 node processes, node 0
+# with this many gateway worker processes on the same card
+GW_WORKERS = 4
+GW_SIGNED = 16
+GW_UNSIGNED = 16
+GW_KILL_ROUND = 16
+GW_TOP_UP = 4 << 20  # objects of the rounds that reach every worker
 
 
 class SmokeError(Exception):
@@ -1139,6 +1173,552 @@ async def tpu_knob_check(data: np.ndarray, dev, n: int = 32) -> dict:
     return dict(st)
 
 
+# ---------------------------------------------------------------------------
+# Grid phase: the split data-plane steps on a grid of repeated devices
+# ---------------------------------------------------------------------------
+
+
+def grid_reference(torch, data: np.ndarray, dev) -> dict:
+    """The grid phase's inputs and what every step must give, from the
+    plain torch composition on the card (G1's and B3's plain versions)
+    held against the host RS oracle and the native BLAKE3."""
+    from garage_tpu_torch import native
+    from garage_tpu_torch.ops import gf_kernel, rs, treehash
+
+    n = K + M
+    host = data[:GRID_B * K * GRID_S].reshape(GRID_B, K, GRID_S)
+    x = torch.from_numpy(host.copy()).to(dev)
+    pmat = torch.from_numpy(rs.parity_matrix(K, M).copy()).reshape(
+        1, M, K).to(dev)
+    parity = gf_kernel.gf_apply_plain(pmat, x)
+    allsh = torch.cat([x, parity], dim=1)
+    lens = torch.full((GRID_B * n,), GRID_S, dtype=torch.int32, device=dev)
+    hashes = treehash.hash_rows_plain(
+        allsh.reshape(GRID_B * n, GRID_S), lens).reshape(GRID_B, n, 32)
+    par_np, hashes_np = parity.cpu().numpy(), hashes.cpu().numpy()
+    check(all(np.array_equal(par_np[i], rs.encode_np(K, M, host[i]))
+              for i in range(GRID_B)), "grid: plain parity != host RS")
+    shards_np = np.concatenate([host, par_np], axis=1)
+    want = native.blake3_many([shards_np[i, j].tobytes()
+                               for i in range(GRID_B) for j in range(n)])
+    check([bytes(r) for r in hashes_np.reshape(-1, 32)] == want,
+          "grid: plain BLAKE3 != native BLAKE3")
+    return {"x": x, "shards": allsh, "parity": parity, "hashes": hashes}
+
+
+def grid_steps(torch, ref: dict, dev) -> dict:
+    """The put, scrub and repair steps at dp = 1, then on the grid
+    [dev, dev] at (dp, tp) = (2, 1) and (1, 2), B = GRID_B stripes of
+    GRID_S bytes a shard: every output byte-equal to the plain
+    composition (ref), one planted corruption flagged by the scrub step.
+    -> per grid and step: kernel launches of one call and its wall ms
+    (median of 5 calls, synchronised)."""
+    from garage_tpu_torch.ops import kernel_launches
+    from garage_tpu_torch.parallel import mesh as pmesh
+
+    present, missing = GRID_REPAIR
+    x, shards, hashes = ref["x"], ref["shards"], ref["hashes"]
+
+    def sync() -> None:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    bad = shards.clone()
+    bad[3, 2, 777] ^= 1
+    out = {}
+    for name, devs, tp in (("dp=1", [dev], 1), ("dp=2,tp=1", [dev, dev], 1),
+                           ("dp=1,tp=2", [dev, dev], 2)):
+        grid = pmesh.data_plane_mesh(devices=devs, tp=tp)
+        put = pmesh.make_put_step(grid, K, M, GRID_S)
+        scrub = pmesh.make_scrub_step(grid, K, M, GRID_S)
+        repair = pmesh.make_repair_step(grid, K, M, present, missing, GRID_S)
+        steps = {"put": lambda: put(x),
+                 "scrub": lambda: scrub(shards, hashes),
+                 "scrub_planted": lambda: scrub(bad, hashes),
+                 "repair": lambda: repair(shards[:, list(present)])}
+        res = {}
+        for step, fn in steps.items():
+            before = kernel_launches()
+            got = fn()
+            sync()
+            after = kernel_launches()
+            walls = []
+            for _ in range(5):
+                t = time.perf_counter()
+                fn()
+                sync()
+                walls.append((time.perf_counter() - t) * 1e3)
+            res[step] = {"out": got, "ms": statistics.median(walls),
+                         "launches": {k: after[k] - before[k] for k in after
+                                      if after[k] != before[k]}}
+        parity, digests = res["put"]["out"]
+        check(torch.equal(parity, ref["parity"]),
+              f"grid {name}: put parity differs from the plain version")
+        check(torch.equal(digests, hashes),
+              f"grid {name}: put hashes differ from the plain version")
+        mask, count = res["scrub"]["out"]
+        check(int(count) == 0 and not bool(mask.any()),
+              f"grid {name}: clean stripes flagged")
+        mask, count = res["scrub_planted"]["out"]
+        check(int(count) == 1 and bool(mask[3, 2])
+              and int(mask.sum()) == 1,
+              f"grid {name}: planted corruption not flagged alone")
+        rebuilt, rhashes = res["repair"]["out"]
+        check(torch.equal(rebuilt, shards[:, list(missing)]),
+              f"grid {name}: repaired shards differ")
+        check(torch.equal(rhashes, hashes[:, list(missing)]),
+              f"grid {name}: repaired shards' hashes differ")
+        out[name] = {step: {"ms": r["ms"], "launches": r["launches"]}
+                     for step, r in res.items()}
+    return out
+
+
+async def grid_feeder(data: np.ndarray, dev, *, devices=None,
+                      mesh_min_items: int = 8, n: int = GRID_B,
+                      block: int = BLOCK, reference: dict | None = None
+                      ) -> dict:
+    """A DeviceFeeder with the grid `devices` (default [dev, dev], dp =
+    2) and `[tpu] mesh_min_items`: n concurrent 1 MiB blocks encoded,
+    their stripes parity-checked with one corrupt, decoded and repaired.
+    With `reference` (this function's result on the one-device route)
+    every result must equal it. -> results and the feeder's stats."""
+    from garage_tpu_torch.block.codec import ErasureCodec
+    from garage_tpu_torch.block.feeder import DeviceFeeder
+    from garage_tpu_torch.parallel.mesh import data_plane_mesh
+    from garage_tpu_torch.utils.config import TpuConfig
+
+    grid = None
+    if reference is not None:
+        grid = data_plane_mesh(devices=devices or [dev, dev], tp=1)
+    feeder = DeviceFeeder(codec=ErasureCodec(K, M, device=dev), device=dev,
+                          max_batch=BATCH, grid=grid,
+                          tpu_cfg=TpuConfig(mesh_min_items=mesh_min_items))
+    blocks = [data[i * block:(i + 1) * block].tobytes() for i in range(n)]
+    present, missing = GRID_REPAIR
+    try:
+        await feeder.encode(blocks[0][:1000])  # probes the device
+        stripes = await asyncio.gather(*(feeder.encode(b) for b in blocks))
+        bad = [list(st) for st in stripes]
+        bad[5][K] = bytes([bad[5][K][0] ^ 1]) + bad[5][K][1:]
+        checks = await feeder.parity_check(bad)
+        decoded = await asyncio.gather(*(
+            feeder.decode(present, [st[i] for i in present], len(b))
+            for st, b in zip(stripes, blocks)))
+        repaired = await asyncio.gather(*(
+            feeder.repair(present, missing, [st[i] for i in present])
+            for st in stripes))
+    finally:
+        await feeder.stop()
+    res = {"stripes": stripes, "checks": checks, "decoded": decoded,
+           "repaired": repaired}
+    check(checks == [i != 5 for i in range(n)],
+          f"grid feeder: parity verdicts {checks}")
+    check(decoded == blocks, "grid feeder: decoded blocks differ")
+    if reference is not None:
+        for key in res:
+            check(res[key] == reference[key],
+                  f"grid feeder: {key} differ from the one-device route")
+    res["stats"] = dict(feeder.stats)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Gateway phase: the erasure deployment as node processes, node 0 with
+# gateway workers on the card
+# ---------------------------------------------------------------------------
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def node_config(d: str, rpc_port: int, rf: int, erasure: tuple,
+                block_size: int, front: str = "") -> str:
+    """garage.toml of one node of the gateway phase's cluster: memory
+    metadata, no RAM block caches (as the S3 phase), `front` appended."""
+    os.makedirs(d, exist_ok=True)
+    path = os.path.join(d, "garage.toml")
+    with open(path, "w") as f:
+        f.write(f"""metadata_dir = "{d}/meta"
+data_dir = "{d}/data"
+replication_factor = {rf}
+erasure_coding = "{erasure[0]},{erasure[1]}"
+block_size = {block_size}
+rpc_bind_addr = "127.0.0.1:{rpc_port}"
+rpc_public_addr = "127.0.0.1:{rpc_port}"
+
+[metadata]
+db_engine = "memory"
+
+[block]
+read_cache_max_bytes = 0
+cache_packed_max_bytes = 0
+cache_tier = false
+
+[qos]
+governor = false
+{front}""")
+    return path
+
+
+def worker_gauges(text: str, name: str) -> dict:
+    """{worker index: value} of a worker-labelled sample `name`."""
+    import re
+
+    out = {}
+    for m in re.finditer(r'^%s\{(?:[^}]*,)?worker="(\d+)"\} (\S+)$'
+                         % re.escape(name), text, re.M):
+        out[int(m.group(1))] = float(m.group(2))
+    return out
+
+
+def kernel_gauges(text: str) -> dict:
+    """{kernel: launches} summed over the gateway workers' samples."""
+    import re
+
+    out: dict = {}
+    for m in re.finditer(r'^feeder_kernel_launches\{kernel="(\w+)",'
+                         r'worker="\d+"\} (\S+)$', text, re.M):
+        out[m.group(1)] = out.get(m.group(1), 0) + int(float(m.group(2)))
+    return out
+
+
+def gateway_phase(torch, data: np.ndarray, root: str, device: str = "cuda",
+                  *, nodes: int = 14, rf: int = S3_RF,
+                  erasure: tuple = (K, M), block_size: int = BLOCK,
+                  workers: int = GW_WORKERS, n_signed: int = GW_SIGNED,
+                  n_unsigned: int = GW_UNSIGNED,
+                  n_kill: int = GW_KILL_ROUND, obj_size: int = S3_OBJ_SIZE,
+                  top_up: int = GW_TOP_UP, chunk: int = S3_CHUNK,
+                  clients: int = S3_CLIENTS, timeout: float = 120.0) -> dict:
+    """`nodes` processes of `python -m garage_tpu_torch.cli.server
+    --device <device>` on loopback TCP; node 0 serves S3 through
+    `[gateway] workers` worker processes and the admin API, through
+    which the nodes are connected, the layout applied and the key and
+    bucket made. `clients` threads PUT `n_signed` objects signed
+    (aws-chunked, `chunk` bytes a chunk), `n_unsigned` unsigned, and GET
+    them all back; a round of `n_kill` more unsigned PUTs loses one
+    worker to SIGKILL a quarter of the way in, and every request must
+    succeed within the client's retries; the worker comes back ready;
+    the lease conservation gauge reads 1 throughout; small rounds then
+    reach every live worker, whose feeder must show device items and no
+    fallback. -> rates, boot seconds, memory and per-worker counters."""
+    import concurrent.futures
+    import re
+    import signal
+    import threading
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from s3util import S3Client
+
+    total = n_signed + n_unsigned + n_kill
+    check(len(data) >= total * obj_size, "gateway phase: not enough data")
+    objs = [data[i * obj_size:(i + 1) * obj_size] for i in range(total)]
+    etags = [hashlib.md5(o).hexdigest() for o in objs]
+    cuda = device != "cpu"
+    env = dict(os.environ, PYTHONPATH=HERE, PYTHONUNBUFFERED="1",
+               RUST_LOG="warning")
+    if not cuda:
+        env["OMP_NUM_THREADS"] = "1"
+    s3_port, admin_port = free_port(), free_port()
+    rpc_ports = [free_port() for _ in range(nodes)]
+    front = (f'\n[s3_api]\napi_bind_addr = "127.0.0.1:{s3_port}"\n'
+             f's3_region = "garage"\n\n[admin]\n'
+             f'api_bind_addr = "127.0.0.1:{admin_port}"\n'
+             f'admin_token = "{ADMIN_TOKEN}"\n\n[gateway]\n'
+             f'workers = {workers}\nlease_interval_s = 0.5\n'
+             f'respawn_backoff_s = 0.5\n')
+    cfgs = [node_config(os.path.join(root, f"node{i:02d}"), rpc_ports[i], rf,
+                        erasure, block_size, front if i == 0 else "")
+            for i in range(nodes)]
+    out: dict = {}
+    procs, logs, ids = [], [[] for _ in range(nodes)], [None] * nodes
+    ready = [threading.Event() for _ in range(nodes)]
+    worker_pids: set = set()
+
+    def reader(i: int, proc) -> None:
+        for line in proc.stdout:
+            logs[i].append(line)
+            m = re.match(r"garage_tpu_torch node ([0-9a-f]{64}) ready", line)
+            if m:
+                ids[i] = m.group(1)
+                ready[i].set()
+
+    api = AdminApi(admin_port)
+    t_phase = time.perf_counter()
+
+    def note(what: str) -> None:  # progress, on stderr
+        print(f"[gateway +{time.perf_counter() - t_phase:.1f} s] {what}",
+              file=sys.stderr, flush=True)
+
+    def admin(method: str, path: str, body=None):
+        st, r = api.call(method, path, body)
+        check(st == 200, f"gateway admin {method} {path}: {st} {r!r}")
+        return r
+
+    def metrics() -> str:
+        st, text = api.call("GET", "/metrics")
+        check(st == 200, f"gateway admin GET /metrics: {st}")
+        return text.decode() if isinstance(text, bytes) else str(text)
+
+    if cuda:
+        torch.cuda.synchronize()
+        out["mem_free_before"] = torch.cuda.mem_get_info(0)[0]
+    pool = concurrent.futures.ThreadPoolExecutor(clients)
+    try:
+        t0 = time.perf_counter()
+        for i in range(nodes):
+            p = subprocess.Popen(
+                [sys.executable, "-m", "garage_tpu_torch.cli.server",
+                 "--config", cfgs[i], "--device", device,
+                 "--log-level", "warning"],
+                cwd=HERE, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)
+            procs.append(p)
+            threading.Thread(target=reader, args=(i, p), daemon=True).start()
+        for i in range(nodes):
+            while not ready[i].wait(1.0):
+                check(procs[i].poll() is None and
+                      time.perf_counter() - t0 < 300,
+                      f"gateway node {i} not ready: "
+                      + "".join(logs[i][-20:]))
+        out["boot_s"] = time.perf_counter() - t0
+        note(f"{nodes} nodes ready")
+        st = admin("GET", "/v1/gateway")
+        worker_pids.update(w["pid"] for w in st["workers"])
+        check(st["workers_alive"] == workers
+              and all(w["ready"] for w in st["workers"]),
+              f"gateway workers not ready: {st!r}")
+        if cuda:
+            torch.cuda.synchronize()
+            out["mem_free_booted"] = torch.cuda.mem_get_info(0)[0]
+        res = admin("POST", "/v1/connect",
+                    [f"{ids[i]}@127.0.0.1:{rpc_ports[i]}"
+                     for i in range(1, nodes)])
+        check(all(r["success"] for r in res), f"connect: {res!r}")
+        admin("POST", "/v1/layout", [
+            {"id": ids[i], "zone": "dc1", "capacity": 1 << 40}
+            for i in range(nodes)])
+        admin("POST", "/v1/layout/apply", {"version": 1})
+        deadline = time.monotonic() + 120
+        while True:
+            st = admin("GET", "/v1/status")
+            if st["layoutVersion"] == 1 and sum(
+                    1 for nd in st["nodes"] if nd["isUp"]
+                    and nd.get("role")) >= nodes:
+                break
+            check(time.monotonic() < deadline,
+                  f"gateway cluster not up: {st!r}")
+            time.sleep(0.5)
+        k = admin("POST", "/v1/key", {"name": "gateway"})
+        b = admin("POST", "/v1/bucket", {"globalAlias": "smoke"})
+        admin("POST", "/v1/bucket/allow", {
+            "bucketId": b["id"], "accessKeyId": k["accessKeyId"],
+            "permissions": {"read": True, "write": True, "owner": True}})
+        client = S3Client("127.0.0.1", s3_port, k["accessKeyId"],
+                          k["secretAccessKey"])
+        retries = [0]
+
+        def retrying(what: str, fn, tries: int = 14):
+            last = ""
+            for attempt in range(tries):
+                try:
+                    st, hdr, body = fn()
+                    if st == 200:
+                        return hdr, body
+                    last = f"{st} {body[:200]!r}"
+                except OSError as e:
+                    last = repr(e)
+                retries[0] += 1
+                note(f"{what}: retry {attempt + 1} after {last}")
+                time.sleep(min(0.25 * 2 ** attempt, 4.0))
+            raise SmokeError(f"gateway {what}: failed after {tries} "
+                             f"tries: {last}")
+
+        def put_signed(i: int) -> None:
+            o = objs[i]
+            chunks = [o[j:j + chunk].tobytes()
+                      for j in range(0, len(o), chunk)]
+            hdr, _ = retrying(f"signed PUT g{i}", lambda: client.put_chunked(
+                f"/smoke/g{i:04d}", chunks))
+            check(hdr.get("etag", "").strip('"') == etags[i],
+                  f"gateway ETag of g{i}")
+
+        def put_unsigned(i: int) -> None:
+            hdr, _ = retrying(f"unsigned PUT g{i}", lambda: client.request(
+                "PUT", f"/smoke/g{i:04d}", body=objs[i].tobytes(),
+                unsigned_payload=True, timeout=timeout))
+            check(hdr.get("etag", "").strip('"') == etags[i],
+                  f"gateway ETag of g{i}")
+
+        def get(i: int) -> None:
+            hdr, body = retrying(f"GET g{i}", lambda: client.request(
+                "GET", f"/smoke/g{i:04d}", timeout=timeout))
+            check(body == objs[i].tobytes(), f"gateway GET g{i}: bytes differ")
+            check(hdr.get("etag", "").strip('"') == etags[i],
+                  f"gateway GET g{i}: ETag")
+
+        def run(fn, idx) -> float:
+            t = time.perf_counter()
+            list(pool.map(fn, idx))
+            return time.perf_counter() - t
+
+        def workers_connected(what: str) -> None:
+            """Until every worker sees every storage node up: a worker
+            learns the other nodes from the store's peer list."""
+            deadline = time.monotonic() + 180
+            while True:
+                up = worker_gauges(metrics(), "cluster_storage_nodes_up")
+                if len(up) == workers and min(up.values()) >= nodes:
+                    return
+                check(time.monotonic() < deadline,
+                      f"gateway: {what}: storage nodes up per worker {up}")
+                time.sleep(0.5)
+
+        workers_connected("before the timed rounds")
+        retrying("warm-up PUT", lambda: client.request(
+            "PUT", "/smoke/warm", body=b"w" * 1000, unsigned_payload=True))
+        # connect, layout, key and bucket, every worker reaching every
+        # storage node, one PUT
+        out["setup_s"] = time.perf_counter() - t0 - out["boot_s"]
+        note("cluster set up")
+        out["put_s"] = run(put_signed, range(n_signed))
+        note("signed PUT round done")
+        out["put_unsigned_s"] = run(put_unsigned,
+                                    range(n_signed, n_signed + n_unsigned))
+        out["get_s"] = run(get, range(n_signed + n_unsigned))
+        out["retries_before_kill"] = retries[0]
+        note("unsigned PUT and GET rounds done")
+
+        # a worker lost to SIGKILL a quarter into a round of PUTs: the
+        # conservation gauge is sampled from the kill until it is back
+        samples: list = []
+        sampling = threading.Event()
+
+        def sample() -> None:
+            while not sampling.is_set():
+                samples.append(gauges(metrics()).get(
+                    "gateway_lease_conservation_ok"))
+                time.sleep(0.25)
+
+        st = admin("GET", "/v1/gateway")
+        victim = next(w for w in st["workers"] if w["index"] == 1)
+        kill_idx = list(range(n_signed + n_unsigned, total))
+        done = [0]
+        done_lock = threading.Lock()
+
+        def put_and_kill(i: int) -> None:
+            put_unsigned(i)
+            with done_lock:
+                done[0] += 1
+                kill = done[0] == max(1, len(kill_idx) // 4)
+            if kill:
+                os.kill(victim["pid"], signal.SIGKILL)
+                out["killed"] = {"index": victim["index"],
+                                 "pid": victim["pid"]}
+
+        sampler = threading.Thread(target=sample, daemon=True)
+        sampler.start()
+        t_kill = time.perf_counter()
+        out["kill_round_s"] = run(put_and_kill, kill_idx)
+        check("killed" in out, "gateway: no worker was killed")
+        note("kill round done")
+        list(pool.map(get, kill_idx))
+        deadline = time.monotonic() + 180
+        while True:
+            st = admin("GET", "/v1/gateway")
+            if st["workers_alive"] == workers and st["restarts_total"] >= 1 \
+                    and all(w["ready"] for w in st["workers"]):
+                break
+            check(time.monotonic() < deadline,
+                  f"gateway: killed worker not back: {st!r}")
+            time.sleep(0.25)
+        out["respawn_s"] = time.perf_counter() - t_kill
+        note("killed worker back")
+        workers_connected("after the respawn")
+        out["reconnect_s"] = time.perf_counter() - t_kill
+        worker_pids.update(w["pid"] for w in st["workers"])
+        check(victim["pid"] not in [w["pid"] for w in st["workers"]],
+              "gateway: the killed worker's pid is still listed")
+        sampling.set()
+        sampler.join()
+        out["conservation_samples"] = len(samples)
+        check(samples and all(v == 1 for v in samples),
+              f"gateway: lease conservation gauge read {samples}")
+        check(st["broker"]["conservation_ok"],
+              "gateway: broker conservation broken")
+        out["retries"] = retries[0]
+
+        # small rounds until every live worker (the respawned one too,
+        # once it has the layout) has run block math on its device
+        n_top = max(1, min(len(data) // top_up, 4 * clients))
+        small = [data[i * top_up:(i + 1) * top_up] for i in range(n_top)]
+        rounds = 0
+        deadline = time.monotonic() + 120
+        while True:
+            text = metrics()
+            items = worker_gauges(text, "feeder_device_items")
+            if len(items) == workers and min(items.values()) > 0:
+                break
+            check(time.monotonic() < deadline,
+                  f"gateway: workers without device items: {items}")
+            rounds += 1
+            time.sleep(0.5)
+
+            def put_small(i: int, r=rounds) -> None:
+                retrying(f"PUT t{r}-{i}", lambda: client.request(
+                    "PUT", f"/smoke/t{r}-{i:03d}", body=small[i].tobytes(),
+                    unsigned_payload=True, timeout=timeout))
+
+            run(put_small, range(n_top))
+        out["top_up_rounds"] = rounds
+        fallbacks = worker_gauges(text, "feeder_device_fallbacks")
+        check(len(fallbacks) == workers and not any(fallbacks.values()),
+              f"gateway: worker fallbacks {fallbacks}")
+        out["worker_device_items"] = items
+        out["worker_batches"] = worker_gauges(text, "feeder_batches")
+        out["worker_launches"] = kernel_gauges(text)
+        out["conservation_final"] = gauges(text).get(
+            "gateway_lease_conservation_ok")
+        check(out["conservation_final"] == 1,
+              "gateway: conservation gauge at the end")
+        if cuda:
+            torch.cuda.synchronize()
+            out["mem_free_end"] = torch.cuda.mem_get_info(0)[0]
+        out["bytes"] = {"put": n_signed * obj_size,
+                        "put_unsigned": n_unsigned * obj_size,
+                        "get": (n_signed + n_unsigned) * obj_size}
+        return out
+    except BaseException:
+        for i, lines in enumerate(logs):  # the nodes' last words
+            if lines:
+                print(f"[gateway node {i} log]\n" + "".join(lines[-30:]),
+                      file=sys.stderr)
+        raise
+    finally:
+        pool.shutdown(wait=True)
+        for p in procs:
+            if p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+        for p in procs:
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+        for pid in worker_pids:  # workers outliving a killed store
+            try:
+                with open(f"/proc/{pid}/cmdline", "rb") as f:
+                    if b"garage_tpu_torch.gateway.worker" in f.read():
+                        os.kill(pid, signal.SIGKILL)
+            except OSError:
+                pass
+
+
 def geometry(name: str, r: dict) -> str:
     """The launch geometry and the operation or chain floors of a timed
     kernel shape, for its kernel line."""
@@ -1250,6 +1830,18 @@ def main() -> int:
         s3_launches = kernel_launches()
         s3_b3_batches = dict(sorted(treehash.batch_sizes.items()))
         knobs = asyncio.run(tpu_knob_check(data, dev))
+        # grid phase: what the steps and the grid feeder must give first
+        # (plain composition, one-device feeder), then the path itself
+        gref = grid_reference(torch, data, dev)
+        grid_one = asyncio.run(grid_feeder(data, dev))
+        reset_launches()
+        gsteps = grid_steps(torch, gref, dev)
+        gfeed = asyncio.run(grid_feeder(data, dev, reference=grid_one))
+        grid_launches = kernel_launches()
+        del gref, grid_one
+        # gateway phase: its kernels run in the worker processes, which
+        # start with every count at 0; their /metrics carry the counts
+        gw = gateway_phase(torch, data, os.path.join(root, "gateway"))
     finally:
         shutil.rmtree(root, ignore_errors=True)
     stats = rates["stats"]
@@ -1355,6 +1947,74 @@ def main() -> int:
         check(s3_launches[name] > 0,
               f"kernel {name} was not launched on the S3 path")
 
+    for grid, steps in gsteps.items():
+        print(f"grid {grid} [{dev}], {GRID_B} stripes RS(10,4) of "
+              f"{GRID_S} B a shard: "
+              + "; ".join(f"{step} {r['ms']:.3f} ms, launches "
+                          f"{json.dumps(r['launches'])}"
+                          for step, r in steps.items())
+              + "; byte-equal to the plain composition")
+    fs = gfeed["stats"]
+    print(f"grid feeder [{dev}, {dev}] dp=2, mesh_min_items 8: "
+          f"{GRID_B} x 1 MiB encoded, parity-checked (1 planted), decoded, "
+          f"repaired; mesh_batches={fs['mesh_batches']} "
+          f"device_batches={fs['device_batches']} "
+          f"device_fallbacks={fs['device_fallbacks']}; equal to the "
+          f"one-device route")
+    print(f"launches on the grid path: {json.dumps(grid_launches)}")
+    check(fs["mesh_batches"] > 0, "the grid feeder took no grid route")
+    check(fs["device_fallbacks"] == 0, "device fallbacks on the grid path")
+    for name in ("gf_apply", "gf_check", "blake3_rows"):
+        check(grid_launches[name] > 0,
+              f"kernel {name} was not launched on the grid path")
+
+    gb = gw["bytes"]
+    gw_rates = {"put": gb["put"] / gw["put_s"] / 1e9,
+                "put_unsigned": gb["put_unsigned"] / gw["put_unsigned_s"]
+                / 1e9,
+                "get": gb["get"] / gw["get_s"] / 1e9}
+    s3_rates = {"put": b["put"] / s3["put_s"] / 1e9,
+                "put_unsigned": b["put_unsigned"] / s3["put_unsigned_s"]
+                / 1e9,
+                "get": b["get"] / s3["get_s"] / 1e9}
+    mem = ""
+    if "mem_free_before" in gw:
+        mem = (f"; card memory taken by the cluster's processes: "
+               f"{(gw['mem_free_before'] - gw['mem_free_booted']) / 2**30:.2f}"
+               f" GiB at boot, "
+               f"{(gw['mem_free_before'] - gw['mem_free_end']) / 2**30:.2f}"
+               f" GiB at the end")
+    print(f"gateway phase ({smi[0]}): 14 node processes, erasure(10,4), "
+          f"node 0 with {GW_WORKERS} gateway workers on {dev}, booted in "
+          f"{gw['boot_s']:.2f} s, set up in {gw['setup_s']:.2f} s (layout, "
+          f"key, every worker reaching the 14 nodes){mem}")
+    print(f"gateway S3 GB/s (beside the in-process S3 phase of this run): "
+          f"signed PUT ({GW_SIGNED} x {S3_OBJ_SIZE >> 20} MiB) "
+          f"{gw_rates['put']:.3f} ({gw['put_s']:.2f} s; in-process "
+          f"{s3_rates['put']:.3f}), unsigned PUT "
+          f"{gw_rates['put_unsigned']:.3f} ({gw['put_unsigned_s']:.2f} s; "
+          f"in-process "
+          f"{s3_rates['put_unsigned']:.3f}), GET {gw_rates['get']:.3f} "
+          f"({gw['get_s']:.2f} s; in-process {s3_rates['get']:.3f})")
+    killed = gw["killed"]
+    print(f"gateway worker {killed['index']} (pid {killed['pid']}) "
+          f"SIGKILLed a quarter into a round of {GW_KILL_ROUND} unsigned "
+          f"PUTs ({gw['kill_round_s']:.2f} s): every request succeeded "
+          f"({gw['retries']} client retries in the phase, "
+          f"{gw['retries_before_kill']} before the kill), all {GW_WORKERS} "
+          f"workers ready {gw['respawn_s']:.2f} s after the kill and "
+          f"reaching the 14 nodes {gw['reconnect_s']:.2f} s after it, lease "
+          f"conservation 1 in {gw['conservation_samples']} samples and at "
+          f"the end; {gw['top_up_rounds']} small round(s) to reach every "
+          f"worker")
+    print(f"gateway workers: feeder_device_items "
+          f"{json.dumps(gw['worker_device_items'])}, feeder_batches "
+          f"{json.dumps(gw['worker_batches'])}, 0 fallbacks; launches "
+          f"counted by the live workers {json.dumps(gw['worker_launches'])}")
+    for name in ("sha256_rows", "gf_apply", "blake3_rows"):
+        check(gw["worker_launches"].get(name, 0) > 0,
+              f"kernel {name} was not launched in the gateway workers")
+
     meta = {
         "gf_apply": ("garage_tpu_torch/csrc/gf256.cu",
                      "garage_tpu/ops/pallas_gf.py:32"),
@@ -1371,7 +2031,13 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": launches[name] + s3_launches[name],
+            "launches": (launches[name] + s3_launches[name]
+                         + grid_launches[name]
+                         + gw["worker_launches"].get(name, 0)),
+            "launches_by_path": {
+                "block": launches[name], "s3": s3_launches[name],
+                "grid": grid_launches[name],
+                "gateway": gw["worker_launches"].get(name, 0)},
             "max_abs_err": r["err"], "ms": r["ms"],
             "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -10,7 +10,7 @@ to the same AdminRpcHandler ops the CLI drives, so both operator
 surfaces stay behavior-identical.
 
 What differs from the JAX package, all of it about the device feeder
-(block/feeder.py), which has no host route, calibration or mesh here:
+(block/feeder.py), which has no host route or calibration here:
 - /v1/s3/tuning keeps every S3, read-cache and cache-tier knob and
   `feeder_inflight_batches` (the batches in flight through the staged
   pipeline, applied from the next batch on). The host-routing floors
@@ -18,11 +18,14 @@ What differs from the JAX package, all of it about the device feeder
   not in the GET state.
 - /metrics exports every feeder counter the port keeps, plus
   `feeder_device_fallbacks` (always 0: a failed device group fails its
-  requests). It leaves out `feeder_throughput_mbps` (calibration),
-  `feeder_inline_items` (the host inline route), `feeder_recompiles`
-  (the kernels are built once, not per launch shape) and
-  `feeder_mesh_batches` (no multi-device split yet), so no gauge reports
-  an event the port does not have.
+  requests), `feeder_mesh_batches` counts the batches split over the
+  device grid (parallel/mesh.py), and `feeder_kernel_launches{kernel}`
+  the launches of each hand-written kernel in this process (a gateway
+  worker's under its `worker` label). It leaves out
+  `feeder_throughput_mbps` (calibration), `feeder_inline_items` (the
+  host inline route) and `feeder_recompiles` (the kernels are built
+  once, not per launch shape), so no gauge reports an event the port
+  does not have.
 """
 
 from __future__ import annotations
@@ -1123,6 +1126,14 @@ class AdminHttpServer:
               "Decode/repair items that ran on the device path (the "
               "read-side engagement proof metric)")
         gauge("feeder_decode_device_bytes", fs["decode_device_bytes"])
+        gauge("feeder_mesh_batches", fs["mesh_batches"],
+              "Device batches split over the device grid")
+        from ..ops import kernel_launches
+
+        for i, (name, n) in enumerate(sorted(kernel_launches().items())):
+            gauge("feeder_kernel_launches", n,
+                  "" if i else "Launches of each hand-written kernel in "
+                  "this process", kernel=name)
         ps = feeder.pipeline_stats()
         gauge("feeder_inflight", ps["inflight"],
               "Batches currently in flight through the staged pipeline")

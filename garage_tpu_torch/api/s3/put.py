@@ -1,6 +1,5 @@
-"""Copy of garage_tpu/api/s3/put.py: import paths rewritten, issue and PR tags dropped.
-
-PutObject / CopyObject: the hot write path.
+"""PutObject / CopyObject: the hot write path (ported from the JAX
+package's api/s3/put.py).
 
 Ref parity: src/api/s3/put.rs:60-640. save_stream chunks the body at
 block_size, inlines tiny objects (< 3072 B) into the object row, and
@@ -8,6 +7,13 @@ otherwise pipelines: read chunk -> md5+blake2 hash -> put block + meta
 (≤ 3 concurrent), exactly the reference's staged pipeline. The TPU batch
 plane hooks in at BlockManager (hashing/erasure batching happen below
 this layer).
+
+What differs from the JAX package: when the object-table lookup that
+runs beside the first block's read fails (a 503 while a node or a
+gateway worker has not yet reached its peers), the first block's ingest
+lease goes back to the pool. The JAX package's text leaves it leased,
+and once all `[s3_api] ingest_buffers` have leaked that way every later
+PUT of the process waits for a lease forever.
 """
 
 from __future__ import annotations
@@ -293,8 +299,15 @@ async def save_stream(garage, bucket_id: bytes, key: str, headers: dict,
     chunker = Chunker(body, block_size, shape=shape, pool=pool)
     async with span("s3.put.first_read_and_lookup"):
         first_block, existing = await asyncio.gather(
-            chunker.next(), garage.object_table.get(bucket_id, key.encode())
-        )
+            chunker.next(), garage.object_table.get(bucket_id, key.encode()),
+            return_exceptions=True)
+    failed = [r for r in (first_block, existing)
+              if isinstance(r, BaseException)]
+    if failed:
+        # either half failed: the other half's lease goes back
+        if hasattr(first_block, "release"):
+            first_block.release()
+        raise failed[0]
     try:
         if quotas is None:  # callers with a loaded ReqCtx pass them in
             quotas = await get_bucket_quotas(garage, bucket_id)

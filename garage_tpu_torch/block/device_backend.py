@@ -9,7 +9,7 @@
 
 - `TorchDeviceBackend`: the device route, with the same
   stage/compute/readback contract and ops as the JAX package's
-  JaxDeviceBackend, on one device. Its kernels are G1/G2
+  JaxDeviceBackend. Its kernels are G1/G2
   (ops/gf_kernel.py), B3 (ops/treehash.py) and S2 (ops/sha256.py) on
   CUDA tensors, their plain torch versions on CPU tensors. Item counts
   pad up the bucket ladder (`[tpu] pad_buckets`, default PAD_BUCKETS)
@@ -22,6 +22,14 @@
   Decode/repair ship the erasure pattern as DATA: each stripe's
   coefficient matrix rides with its shards into one G1 launch, so no
   launch depends on which shards survived.
+
+  The grid route (the JAX package's mesh route): with a device grid of
+  more than one cell (parallel/mesh.py; by default every visible CUDA
+  device when there are several), encode, parity-check and decode /
+  repair batches of at least `[tpu] mesh_min_items` items round their
+  stripe count up to a multiple of dp and their shard length up to tp
+  vector widths, and run the grid's split steps; `mesh_batches` counts
+  them. On one card the grid has one cell and the route stays off.
 
   All three stages run on ONE CUDA stream owned by the backend
   (torch's current stream is per thread, and the stages run in three
@@ -184,9 +192,20 @@ class DevicePipeline:
 # ---------------------------------------------------------------------------
 
 
-def round_vec(n: int) -> int:
-    """Shard-length pad: the GF kernels' 16-byte vector width."""
-    return max(16, -(-n // 16) * 16)
+def round_vec(n: int, parts: int = 1) -> int:
+    """Shard-length pad: the GF kernels' 16-byte vector width, in each
+    of `parts` equal byte parts."""
+    q = 16 * parts
+    return max(q, -(-n // q) * q)
+
+
+def _default_grid(device: torch.device):
+    """Every visible CUDA device when there are several, else None."""
+    if device.type != "cuda" or torch.cuda.device_count() < 2:
+        return None
+    from ..parallel.mesh import data_plane_mesh
+
+    return data_plane_mesh()
 
 
 def _fill_stripe(dst: np.ndarray, pre: bytes, data, sl: int) -> None:
@@ -212,12 +231,17 @@ class TorchDeviceBackend:
     under the feeder's watchdog."""
 
     def __init__(self, codec=None, device="cuda", stats: dict | None = None,
-                 pad_buckets=PAD_BUCKETS):
+                 pad_buckets=PAD_BUCKETS, grid=None, mesh_min_items: int = 8):
         self.codec = codec
         self.pad_buckets = tuple(sorted(int(b) for b in pad_buckets)) \
             or PAD_BUCKETS
         self.device = resolve_device(device)
-        self.stats = stats if stats is not None else {"pad_waste_bytes": 0}
+        self.stats = stats if stats is not None else {"pad_waste_bytes": 0,
+                                                      "mesh_batches": 0}
+        # the grid route: `grid` (parallel/mesh.py Grid) or, by default,
+        # every visible CUDA device when there are several
+        self.grid = grid if grid is not None else _default_grid(self.device)
+        self.mesh_min_items = max(1, int(mesh_min_items))
         self._cuda = self.device.type == "cuda"
         self._stream = (torch.cuda.Stream(self.device) if self._cuda
                         else None)
@@ -247,6 +271,22 @@ class TorchDeviceBackend:
     @staticmethod
     def _numpy(t: torch.Tensor) -> np.ndarray:
         return t.cpu().numpy()
+
+    def _grid_for(self, n_items: int):
+        """The grid for a batch of n_items, or None (one device)."""
+        if self.grid is None or self.grid.size < 2 \
+                or n_items < self.mesh_min_items:
+            return None
+        return self.grid
+
+    def _padded(self, n_items: int, slen: int, grid):
+        """(items, shard length) of a launch: the bucket ladder and the
+        vector width, rounded up to the grid's dp and tp parts."""
+        bpad = bucket_items(n_items, self.pad_buckets)
+        if grid is None:
+            return bpad, round_vec(slen)
+        dp, tp = grid.shape["dp"], grid.shape["tp"]
+        return -(-bpad // dp) * dp, round_vec(slen, tp)
 
     # ---- stage: host pack + pad + h2d -----------------------------------
 
@@ -328,8 +368,8 @@ class TorchDeviceBackend:
             return len(b) if op == "encode" else len(b[0]) + len(b[1])
 
         slens = [rs.shard_len(total_len(b), k) for b in blocks]
-        smax = round_vec(max(slens))
-        bpad = bucket_items(len(blocks), self.pad_buckets)
+        grid = self._grid_for(len(blocks))
+        bpad, smax = self._padded(len(blocks), max(slens), grid)
         batch_t, batch = self._host((bpad, k, smax))
         for i, b in enumerate(blocks):
             sl = slens[i]
@@ -344,12 +384,13 @@ class TorchDeviceBackend:
         batch[len(blocks):] = 0
         waste = bpad * k * smax - sum(total_len(b) for b in blocks)
         self.stats["pad_waste_bytes"] += waste
-        return (blocks, slens, batch_t, self._to_device(batch_t))
+        return (blocks, slens, batch_t, self._to_device(batch_t), grid)
 
     def _stage_parity(self, stripes: list[list[bytes]]):
         k, m = self.codec.k, self.codec.m
-        smax = round_vec(max(len(s[0]) for s in stripes))
-        bpad = bucket_items(len(stripes), self.pad_buckets)
+        grid = self._grid_for(len(stripes))
+        bpad, smax = self._padded(len(stripes),
+                                  max(len(s[0]) for s in stripes), grid)
         arr_t, arr = self._host((bpad, k + m, smax))
         arr[...] = 0
         for i, s in enumerate(stripes):
@@ -357,7 +398,7 @@ class TorchDeviceBackend:
                 arr[i, j, : len(b)] = np.frombuffer(b, dtype=np.uint8)
         waste = bpad * (k + m) * smax - sum(len(b) for s in stripes for b in s)
         self.stats["pad_waste_bytes"] += waste
-        return (len(stripes), self._to_device(arr_t))
+        return (len(stripes), self._to_device(arr_t), grid)
 
     def _stage_gf(self, op: str, items: list):
         """Pad + h2d for the pattern-as-data decode/repair launches,
@@ -376,8 +417,8 @@ class TorchDeviceBackend:
         staged = []
         for rows, idxs in groups.items():
             slens = [len(shards_of(items[i])[0]) for i in idxs]
-            smax = round_vec(max(slens))
-            bpad = bucket_items(len(idxs), self.pad_buckets)
+            grid = self._grid_for(len(idxs))
+            bpad, smax = self._padded(len(idxs), max(slens), grid)
             batch_t, batch = self._host((bpad, k, smax))
             batch[...] = 0
             # pad rows keep zero matrices: zero output rows, sliced away
@@ -395,13 +436,14 @@ class TorchDeviceBackend:
             self.stats["pad_waste_bytes"] += waste
             staged.append((idxs, slens,
                            self._to_device(torch.from_numpy(mats)),
-                           self._to_device(batch_t)))
+                           self._to_device(batch_t), grid))
         return staged
 
     # ---- compute: launch the kernels (no host sync) ----------------------
 
     def compute(self, op: str, staged):
         from ..ops import rs, sha256, treehash
+        from ..parallel import mesh as pmesh
 
         op, blobs, inner = staged
         k, m = (self.codec.k, self.codec.m) if self.codec else (0, 0)
@@ -413,14 +455,33 @@ class TorchDeviceBackend:
             elif op == "sha256":
                 out = sha256.hash_rows(*inner)
             elif op in ("encode", "encode_put"):
-                blocks, slens, batch_t, dev = inner
-                out = (blocks, slens, batch_t, rs.encode(k, m, dev))
+                blocks, slens, batch_t, dev, grid = inner
+                if grid is not None:
+                    parity = pmesh.make_encode_step(
+                        grid, k, m, dev.shape[2])(dev)
+                    self.stats["mesh_batches"] += 1
+                else:
+                    parity = rs.encode(k, m, dev)
+                out = (blocks, slens, batch_t, parity)
             elif op == "parity_check":
-                n, dev = inner
-                out = (n, rs.parity_check(k, m, dev))
+                n, dev, grid = inner
+                if grid is not None:
+                    ok = pmesh.make_parity_check_step(
+                        grid, k, m, dev.shape[2])(dev)
+                    self.stats["mesh_batches"] += 1
+                else:
+                    ok = rs.parity_check(k, m, dev)
+                out = (n, ok)
             elif op in ("decode", "repair"):
-                out = [(idxs, slens, rs.gf_apply_batched(mats, dev))
-                       for idxs, slens, mats, dev in inner]
+                out = []
+                for idxs, slens, mats, dev, grid in inner:
+                    if grid is not None:
+                        res = pmesh.make_gf_apply_step(
+                            grid, k, mats.shape[1], dev.shape[2])(mats, dev)
+                        self.stats["mesh_batches"] += 1
+                    else:
+                        res = rs.gf_apply_batched(mats, dev)
+                    out.append((idxs, slens, res))
             else:
                 raise RuntimeError(f"unknown device op {op!r}")
         return (op, blobs, out)

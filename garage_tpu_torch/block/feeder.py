@@ -22,14 +22,17 @@ The `[tpu]` knobs that mean the same on CUDA are honoured, as in the JAX
 package: `batch_blocks` (the greedy-drain cap, `max_batch`),
 `inflight_batches` (runtime-settable through the admin API's
 /v1/s3/tuning), `batch_timeout_s` (the watchdog), `batch_linger_ms`
-(the PUT lanes' gather window; 0 ships at once) and `pad_buckets` (the
-backend's item-count ladder). The routing floors, trials and mesh knobs
-have no counterpart here (model/garage.py names them when set).
+(the PUT lanes' gather window; 0 ships at once), `pad_buckets` (the
+backend's item-count ladder) and `mesh_min_items` (the smallest batch
+that takes the device grid, when the grid has several cells). The
+routing floors and trials have no counterpart here (model/garage.py
+names them when set).
 
 Ported from the JAX package's block/feeder.py; what differs: the probe,
-the backend (torch, one device, no mesh), one mode ("require": no host
-routing, calibration or fallback: a lone stream's chunk digest goes to
-the device too), and the content hash fixed to BLAKE3.
+the backend (torch; a device grid in place of the mesh), one mode
+("require": no host routing, calibration or fallback: a lone stream's
+chunk digest goes to the device too), and the content hash fixed to
+BLAKE3.
 """
 
 from __future__ import annotations
@@ -108,7 +111,7 @@ class DeviceFeeder:
 
     def __init__(self, codec=None, mode: str = "require",
                  max_batch: int = 256, backend=None, device="cuda",
-                 tpu_cfg=None):
+                 tpu_cfg=None, grid=None):
         if mode != "require":
             raise ValueError(f"unknown feeder mode {mode!r}: the port has "
                              "only \"require\"")
@@ -135,6 +138,10 @@ class DeviceFeeder:
         # item-count ladder of the backend's launch shapes
         self.pad_buckets = tuple(
             int(b) for b in knob("pad_buckets", PAD_BUCKETS))
+        # the device grid (parallel/mesh.py; None: every visible CUDA
+        # device when there are several) and the smallest batch it takes
+        self.grid = grid
+        self.mesh_min_items = int(knob("mesh_min_items", 8))
         # a ready backend object (tests), else TorchDeviceBackend
         self._backend = backend
         self._backend_lock = threading.Lock()
@@ -145,6 +152,8 @@ class DeviceFeeder:
         self.stats = {"batches": 0, "items": 0, "device_batches": 0,
                       "device_items": 0, "device_bytes": 0,
                       "max_batch": 0, "pad_waste_bytes": 0,
+                      # device batches split over the device grid
+                      "mesh_batches": 0,
                       # read-side (decode + repair) engagement counters
                       "decode_items": 0, "decode_device_items": 0,
                       "decode_device_bytes": 0,
@@ -182,7 +191,8 @@ class DeviceFeeder:
             if self._backend is None:
                 self._backend = TorchDeviceBackend(
                     codec=self.codec, device=self.device, stats=self.stats,
-                    pad_buckets=self.pad_buckets)
+                    pad_buckets=self.pad_buckets, grid=self.grid,
+                    mesh_min_items=self.mesh_min_items)
             return self._backend
 
     async def _probe(self) -> None:

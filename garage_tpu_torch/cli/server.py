@@ -7,13 +7,16 @@ block math then runs each kernel's plain torch version), starts RPC
 listen + gossip + workers, then every front end the config asks for:
 S3, the admin HTTP API, K2V and the web front end; exits cleanly on
 SIGINT/SIGTERM/SIGHUP. The config file format is the JAX package's.
+With `[gateway] workers` other than 1 and a TCP front-end bind, the
+node becomes the store and gateway supervisor, as in the JAX package:
+it keeps RPC, the tables, the background work and the admin API, and
+N worker processes (gateway/) serve S3, K2V and web on the same ports,
+each on the store's `--device`.
 
-What differs from the JAX package: a config with `[gateway] workers`
-other than 1 (the multi-process gateway) stops at startup with an error
-that names the later slice of the port, and so does `[tpu] enable =
-false` unless `--device cpu` is given (model/garage.py
-check_tpu_section); nothing runs without them silently. The operator
-CLI (cli/main.py) reaches the node over RPC as before.
+What differs from the JAX package: `--device`, which the gateway
+workers inherit, and `[tpu] enable = false`, which stops at startup
+unless `--device cpu` is given (model/garage.py check_tpu_section).
+The operator CLI (cli/main.py) reaches the node over RPC as before.
 """
 
 from __future__ import annotations
@@ -37,11 +40,6 @@ async def run_server(cfg_path: str, device="cuda") -> None:
 
     tune()
     cfg = await asyncio.to_thread(read_config, cfg_path)
-    if cfg.gateway.workers != 1:
-        raise SystemExit(
-            "garage_tpu_torch server: not ported yet, comes with a later "
-            "slice of the port (ROADMAP: the multi-process gateway): "
-            f"[gateway] workers = {cfg.gateway.workers}")
     from .. import resolve_device
 
     try:
@@ -55,12 +53,12 @@ async def run_server(cfg_path: str, device="cuda") -> None:
     # same lock, so offline maintenance can't race a live node
     lock_fd = lockfile.acquire(cfg.metadata_dir, "server")
     try:
-        await _run_server_locked(cfg, device)
+        await _run_server_locked(cfg, cfg_path, device)
     finally:
         lockfile.release(lock_fd)
 
 
-async def _run_server_locked(cfg, device) -> None:
+async def _run_server_locked(cfg, cfg_path: str, device) -> None:
     garage = Garage(cfg, device=device)
     admin = AdminRpcHandler(garage)  # also serves the CLI's RPC endpoint
     otlp = None
@@ -87,10 +85,29 @@ async def _run_server_locked(cfg, device) -> None:
         else:
             await srv.start(*parse_addr(bind))
 
+    # multi-process gateway ([gateway] workers != 1 with at least one
+    # TCP frontend bind): this process becomes the store node +
+    # supervisor — it keeps RPC, tables, block/resync/scrub workers and
+    # the admin API, while N worker processes bind the S3/K2V/web ports
+    # with SO_REUSEPORT (gateway/), on this node's device.
+    from ..gateway.supervisor import GatewaySupervisor, resolve_workers
+
+    n_workers = resolve_workers(cfg.gateway.workers)
+    gateway_mode = n_workers > 1 and any(
+        b and not b.startswith("/")
+        for b in (cfg.s3_api_bind_addr, cfg.k2v_api_bind_addr,
+                  cfg.web_bind_addr))
+    if n_workers > 1 and not gateway_mode:
+        log.warning(
+            "[gateway] workers = %d ignored: no TCP frontend binds "
+            "(SO_REUSEPORT does not apply to unix sockets); running "
+            "the single-process frontend", n_workers)
+
     system_task = asyncio.create_task(garage.run())
     servers = []
+    supervisor = None
     s3 = None
-    if cfg.s3_api_bind_addr:
+    if cfg.s3_api_bind_addr and not gateway_mode:
         s3 = S3ApiServer(garage)
         await start_frontend(s3, cfg.s3_api_bind_addr)
         servers.append(s3)
@@ -100,18 +117,22 @@ async def _run_server_locked(cfg, device) -> None:
         ad = AdminHttpServer(garage, admin_rpc=admin)
         await start_frontend(ad, cfg.admin_api_bind_addr)
         servers.append(ad)
-    if cfg.k2v_api_bind_addr:
+    if cfg.k2v_api_bind_addr and not gateway_mode:
         from ..api.k2v.api_server import K2VApiServer
 
         k2v = K2VApiServer(garage)
         await start_frontend(k2v, cfg.k2v_api_bind_addr)
         servers.append(k2v)
-    if cfg.web_bind_addr:
+    if cfg.web_bind_addr and not gateway_mode:
         from ..web.server import WebServer
 
         web = WebServer(garage, s3)
         await start_frontend(web, cfg.web_bind_addr)
         servers.append(web)
+    if gateway_mode:
+        supervisor = GatewaySupervisor(garage, cfg_path,
+                                       n_workers=n_workers, device=device)
+        await supervisor.start()
 
     log.info("node %s up (rpc %s, device %s)", garage.system.id.hex()[:16],
              cfg.rpc_bind_addr, device)
@@ -119,6 +140,8 @@ async def _run_server_locked(cfg, device) -> None:
           flush=True)
     await stop.wait()
     log.info("shutting down")
+    if supervisor is not None:
+        await supervisor.stop()
     for s in servers:
         await s.stop()
     await garage.stop()

@@ -6,9 +6,9 @@ What differs from the JAX package: Garage takes a torch `device`
 BlockManager in place of the feeder mode. The config file format is the
 JAX package's, so one garage.toml serves both packages. Of `[tpu]`, the
 feeder honours `batch_blocks`, `inflight_batches`, `batch_timeout_s`,
-`batch_linger_ms` and `pad_buckets`; `enable = false` (the JAX
-package's host-only node) is refused unless the device is the CPU; the
-routing floors, trials, mesh and platform keys have no meaning on the
+`batch_linger_ms`, `pad_buckets` and `mesh_min_items`; `enable = false`
+(the JAX package's host-only node) is refused unless the device is the
+CPU; the routing floors, trials and platform keys have no meaning on the
 port and are named in one warning when set (`check_tpu_section`).
 
 Ref parity: src/model/garage.rs:37-334. Opens the db, builds the
@@ -67,10 +67,11 @@ def parse_addr(s: str) -> tuple[str, int]:
 
 
 # [tpu] keys the port acts on; every other key of TpuConfig (the host
-# routing floors, calibration trials, mesh, platform and backend
-# selection) has no counterpart on a CUDA node
+# routing floors, calibration trials, platform and backend selection)
+# has no counterpart on a CUDA node
 _TPU_HONOURED = ("enable", "batch_blocks", "inflight_batches",
-                "batch_timeout_s", "batch_linger_ms", "pad_buckets")
+                "batch_timeout_s", "batch_linger_ms", "pad_buckets",
+                "mesh_min_items")
 
 
 def check_tpu_section(tpu: TpuConfig, device) -> list[str]:

@@ -11,7 +11,8 @@ package.
 
 `load_reference_suite` applies the same import rewrite to a test module
 of the JAX package, so that its tests run against the port (the
-test_torch_s3_api, test_torch_s3_fastpath and test_torch_k2v files)."""
+test_torch_s3_api, test_torch_s3_fastpath, test_torch_k2v and
+test_torch_gateway files)."""
 
 from __future__ import annotations
 
@@ -33,7 +34,9 @@ PORTED = {
     "ops/rs.py", "ops/treehash.py", "ops/sha256.py",
     "block/codec.py", "block/device_backend.py", "block/feeder.py",
     "block/manager.py",
-    "model/garage.py", "api/signature.py", "cli/server.py",
+    "model/garage.py", "api/signature.py", "api/s3/put.py", "cli/server.py",
+    "gateway/supervisor.py", "gateway/worker.py",
+    "parallel/__init__.py", "parallel/mesh.py",
 }
 
 _REWRITE = re.compile(r"\bgarage_tpu(?=\.[A-Za-z_])")

@@ -400,3 +400,28 @@ def test_g2_plan_rs104_is_one_launch(dev, b):
     assert units == b * -(-s // tile)
     assert 1 <= grid <= units
     assert smem >= 2 * 14 * tile
+
+
+@pytest.mark.parametrize("tp", [1, 2])
+def test_grid_steps_on_repeated_devices_match_cpu(dev, tp):
+    """The split steps (parallel/mesh.py) on the grid [cuda:0, cuda:0]:
+    parts on two streams of one card, gathered byte-equal to the same
+    steps on a grid of CPU cells (the plain versions)."""
+    from garage_tpu_torch.parallel import mesh as pmesh
+
+    k, m, s = 10, 4, 3 * 1024
+    data = torch.from_numpy(_data(40 + tp, (4, k, s)))
+    cpu = pmesh.data_plane_mesh(tp=tp, devices=["cpu"] * 2)
+    card = pmesh.data_plane_mesh(tp=tp, devices=[dev, dev])
+    want_p, want_h = pmesh.make_put_step(cpu, k, m, s)(data)
+    got_p, got_h = pmesh.make_put_step(card, k, m, s)(data.to(dev))
+    assert torch.equal(got_p.cpu(), want_p) and torch.equal(got_h.cpu(), want_h)
+    shards = torch.cat([data, want_p], dim=1)
+    shards[1, 3, 100] ^= 1
+    bad, n = pmesh.make_scrub_step(card, k, m, s)(shards.to(dev),
+                                                  want_h.to(dev))
+    assert int(n) == 1 and bool(bad[1, 3])
+    present, missing = tuple(range(4, 14)), (0, 1, 2, 3)
+    rebuilt, _ = pmesh.make_repair_step(card, k, m, present, missing, s)(
+        torch.cat([data, want_p], dim=1)[:, list(present)].to(dev))
+    assert torch.equal(rebuilt.cpu(), data[:, :4])

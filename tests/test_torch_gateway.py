@@ -1,0 +1,31 @@
+"""The JAX package's multi-process gateway suite (tests/test_gateway.py),
+run against the port: the lease broker, the cache ring, the block
+manager's cache-router seam (on the port's BlockManager with
+device="cpu"), the worker config derivation, the /metrics relabel, and
+the two forked drills, where the store is
+`garage_tpu_torch.cli.server --device cpu` with jax and garage_tpu
+blocked and its supervisor starts `garage_tpu_torch.gateway.worker`
+processes on the same device.
+
+The reference file, and the block-cluster helpers it takes from
+tests/test_block.py, are read as text and executed here with the import
+rewrite of tests/test_torch_copies.py (`load_reference_suite`); neither
+is imported or changed. The forked server is the port's S3 suite's
+(tests/test_torch_s3_api.py `Server`).
+"""
+
+from test_torch_copies import load_reference_suite
+
+_block: dict = {}
+load_reference_suite(
+    "test_block", _block,
+    edits=[("BlockManager(s, db, lay, cache_tier=cache_tier)",
+            'BlockManager(s, db, lay, cache_tier=cache_tier, device="cpu")')])
+
+load_reference_suite(
+    "test_gateway", globals(),
+    edits=[("from test_block import make_block_cluster, stop_all",
+            'make_block_cluster, stop_all = (_block["make_block_cluster"], '
+            '_block["stop_all"])'),
+           ("from test_s3_api import Server",
+            "from test_torch_s3_api import Server")])

@@ -188,3 +188,44 @@ def test_s3_entry_points_put_get_without_jax():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-3000:]
     assert "S3 OK" in r.stdout
+
+
+_GRID_GATEWAY_CHILD = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["garage_tpu"] = None
+import numpy as np
+import torch
+torch.set_num_threads(1)
+import garage_tpu_torch.gateway.shm
+import garage_tpu_torch.gateway.supervisor
+from garage_tpu_torch.gateway.worker import derive_worker_config
+from garage_tpu_torch.ops import rs, treehash
+from garage_tpu_torch.parallel import data_plane_mesh, make_put_step
+from garage_tpu_torch.utils.config import Config
+
+grid = data_plane_mesh(tp=2, devices=["cpu"] * 4)
+x = np.random.default_rng(1).integers(0, 256, (4, 4, 2048), dtype=np.uint8)
+parity, hashes = make_put_step(grid, 4, 2, 2048)(torch.from_numpy(x))
+for i in range(4):
+    assert (parity[i].numpy() == rs.encode_np(4, 2, x[i])).all()
+    assert bytes(hashes[i, 0].numpy()) == treehash.blake3_py(x[i, 0].tobytes())
+w = derive_worker_config(Config(metadata_dir="/m"), 1, 2, "ab" * 32 + "@h:1")
+assert w.metadata_dir == "/m/gateway/worker1" and w.db_engine == "memory"
+bad = sorted(n for n in sys.modules
+             if n.split(".")[0] in ("jax", "jaxlib", "garage_tpu")
+             and sys.modules[n] is not None)
+assert not bad, bad
+print("GRID GATEWAY OK")
+"""
+
+
+def test_grid_steps_and_gateway_modules_run_without_jax():
+    """parallel/ and gateway/{shm,supervisor,worker}.py import with jax
+    and garage_tpu blocked; a put step runs on a grid of 4 CPU cells and
+    a worker config derives."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run([sys.executable, "-c", _GRID_GATEWAY_CHILD], cwd=REPO,
+                       env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-3000:]
+    assert "GRID GATEWAY OK" in r.stdout

@@ -6,6 +6,7 @@ tolerance: digests are bytes."""
 from __future__ import annotations
 
 import hashlib
+import time
 
 import numpy as np
 import pytest
@@ -65,6 +66,48 @@ def test_plain_matches_reference_and_hashlib(lengths):
     got = _port_hex(msgs)
     assert got == [hashlib.sha256(m).hexdigest() for m in msgs]
     assert got == _jax_hex(msgs)
+
+
+@pytest.mark.parametrize("lengths", [
+    EDGES, [1000, 5, 4096, 130], [8192],
+], ids=["edges", "mixed", "8k"])
+def test_tensor_formulation_matches_reference_and_hashlib(lengths,
+                                                          monkeypatch):
+    """The tensor formulation (what a CUDA tensor or a wide CPU batch
+    takes) on the same rows, with the integer route switched off."""
+    monkeypatch.setattr(tsha, "_INT_ROUTE_ROWS", 0)
+    msgs = _msgs(lengths, seed=len(lengths) * 7 + lengths[0])
+    got = _port_hex(msgs)
+    assert got == [hashlib.sha256(m).hexdigest() for m in msgs]
+    assert got == _jax_hex(msgs)
+
+
+@pytest.mark.parametrize("nblocks", [1, 1025, 3126])
+def test_plain_long_rows_match_reference_and_hashlib(nblocks):
+    """One row of 1, 1,025 (64 KiB) and 3,126 (a 200,000-byte aws-chunk)
+    blocks, alone and at both padding edges of that block count."""
+    lengths = [max((nblocks - 1) * tsha.BLOCK - 8, 0),   # shortest
+               nblocks * tsha.BLOCK - 9]                 # longest
+    msgs = _msgs(lengths, seed=nblocks)
+    for m in msgs:
+        assert tsha.n_blocks_for(len(m)) == nblocks
+        got = _port_hex([m])
+        assert got == [hashlib.sha256(m).hexdigest()]
+        assert got == _jax_hex([m])
+
+
+def test_plain_64k_row_is_fast_on_the_cpu():
+    """A --device cpu node hashes every signed 64 KiB chunk with the
+    plain version; at ~7 s a chunk a 350 KB body timed out at the S3
+    client's 30 s, so one 64 KiB row must take well under a second."""
+    msg = _msgs([65536], seed=11)[0]
+    rows, nbs = _port_rows([msg])
+    rows_t, nbs_t = torch.from_numpy(rows), torch.from_numpy(nbs)
+    t0 = time.perf_counter()
+    out = tsha.hash_rows_plain(rows_t, nbs_t)
+    elapsed = time.perf_counter() - t0
+    assert out.numpy()[0].tobytes() == hashlib.sha256(msg).digest()
+    assert elapsed < 3.0, f"{elapsed:.2f} s for one 64 KiB row"
 
 
 def test_span_list_messages():

@@ -1,7 +1,7 @@
 """The port honours garage.toml's `[tpu]` section as far as its keys mean
 something on CUDA: a port `Garage` built from a config reads
-`batch_blocks`, `inflight_batches`, `batch_timeout_s`, `batch_linger_ms`
-and `pad_buckets` into its feeder exactly as the JAX package's `Garage`
+`batch_blocks`, `inflight_batches`, `batch_timeout_s`, `batch_linger_ms`,
+`pad_buckets` and `mesh_min_items` into its feeder exactly as the JAX package's `Garage`
 built from the same file does, and its batches never exceed
 `batch_blocks`. `enable = false` is refused unless the device is the
 CPU; the keys with no meaning on the port are named in one warning.
@@ -44,7 +44,7 @@ db_engine = "memory"
 """
 
 _KNOBS = ("batch_blocks = 8\nbatch_linger_ms = 0\ninflight_batches = 2\n"
-          "batch_timeout_s = 30\n")
+          "batch_timeout_s = 30\nmesh_min_items = 4\n")
 
 
 def _config(tmp_path, tpu: str, reader=read_config):
@@ -58,7 +58,8 @@ def _settings(feeder) -> dict:
             "inflight_batches": feeder.inflight_batches,
             "batch_timeout": feeder.batch_timeout,
             "batch_linger": feeder.batch_linger,
-            "pad_buckets": tuple(feeder.pad_buckets)}
+            "pad_buckets": tuple(feeder.pad_buckets),
+            "mesh_min_items": feeder.mesh_min_items}
 
 
 def test_feeder_reads_the_knobs_like_the_jax_package(tmp_path):
@@ -67,7 +68,8 @@ def test_feeder_reads_the_knobs_like_the_jax_package(tmp_path):
     g = Garage(_config(tmp_path, _KNOBS), device="cpu")
     want = {"max_batch": 8, "inflight_batches": 2, "batch_timeout": 30.0,
             "batch_linger": 0.0,
-            "pad_buckets": (1, 2, 4, 8, 16, 32, 64, 128, 256)}
+            "pad_buckets": (1, 2, 4, 8, 16, 32, 64, 128, 256),
+            "mesh_min_items": 4}
     assert _settings(g.block_manager.feeder) == want
     jtmp = tmp_path / "jax"
     jtmp.mkdir()
@@ -186,13 +188,13 @@ def test_enable_false_needs_the_cpu(tmp_path):
 
 def test_keys_without_meaning_are_named_once(tmp_path, caplog):
     cfg = _config(tmp_path, _KNOBS + "device_min_bytes = 1\n"
-                  "mesh_min_items = 2\ntrial_max_items = 1\n")
+                  "device_min_items = 2\ntrial_max_items = 1\n")
     assert check_tpu_section(cfg.tpu, "cpu") == [
-        "device_min_bytes", "mesh_min_items", "trial_max_items"]
+        "device_min_bytes", "device_min_items", "trial_max_items"]
     with caplog.at_level(logging.WARNING, "garage_tpu_torch.model"):
         Garage(cfg, device="cpu")
     warned = [r.getMessage() for r in caplog.records
               if "[tpu]" in r.getMessage()]
     assert len(warned) == 1
-    assert "device_min_bytes, mesh_min_items, trial_max_items" in warned[0]
+    assert "device_min_bytes, device_min_items, trial_max_items" in warned[0]
     assert check_tpu_section(_config(tmp_path, _KNOBS).tpu, "cpu") == []
