@@ -63,6 +63,25 @@ each kernel's times as one JSON line: run it for two checkouts in turns
    Then a feeder built from `[tpu] batch_blocks = 8, batch_linger_ms =
    0` hashes 32 concurrent 1 MiB blocks on the card in batches of at
    most 8.
+4b. Durability phase, with the launch counts set to 0 again: the S3
+   phase's deployment (14 port nodes, erasure(10,4), 1 MiB blocks, no
+   RAM or tier caches) takes 1 GiB (1,024 blocks from the seed) through
+   node 0's BlockManager.rpc_put_block from 8 concurrent writers, each
+   block referenced on every node. Planted: 8 forged shards (2 on
+   parity rows), 2 wrong-length shards, 2 rotted packed_len headers, a
+   forged data + parity pair in one block, and a disk_bitrot fault on
+   one stripe leader's read. A deep scrub runs through every node's
+   admin RPC (`worker set scrub-tranquility 0`, `repair scrub start`)
+   until every node's scrub-last-completed advances: the summed
+   block_scrub_* counters of /metrics must equal the plant, each
+   repaired stripe re-encoded through the feeder (G1), G2 launched, and
+   every block read back. Then node 13 stops and loses its data
+   directory, a layout puts a fresh node 14 in its role, and `repair
+   blocks` runs on every node with resync-tranquility 0: node 14's
+   shards, rebuilt by the resync workers through feeder.repair (G1),
+   must equal a host re-encode (native oracle and numpy RS), every
+   queue and error tree must empty, every block read back, and no node
+   fall back to the host.
 5. Grid phase (parallel/mesh.py), with the launch counts set to 0 again:
    the put, scrub and repair steps on 16 RS(10,4) stripes of 105,472 B
    a shard (a 1 MiB block's shard rounded up to BLAKE3's chunk), at dp =
@@ -101,6 +120,7 @@ from __future__ import annotations
 
 import asyncio
 import hashlib
+import inspect
 import json
 import os
 import shutil
@@ -185,6 +205,11 @@ ADMIN_TOKEN = "chip-smoke-admin-token"
 WEB_ROOT = ".web.smoke"
 S3_WEB = 16
 K2V_ITEMS = 64
+# durability phase: the S3 phase's deployment holding N_BLOCKS blocks of
+# BLOCK bytes (1 GiB), written by N_OBJECTS writers; every wait of the
+# phase ends at DUR_TIMEOUT seconds
+DUR_NODES = 14
+DUR_TIMEOUT = 600.0
 # grid phase: the split steps (parallel/mesh.py) on RS(10,4) stripes of
 # 1 MiB blocks; a shard is 104,864 B, rounded up to BLAKE3's 1,024-byte
 # chunk, as the put, scrub and repair steps need
@@ -739,23 +764,42 @@ class PortCluster:
                       block_cache_tier=False,
                       qos=QosConfig(governor=False))
 
-    async def start(self) -> None:
+    def _boot(self) -> None:
         from garage_tpu_torch.model.garage import Garage
+
+        g = Garage(self._config(len(self.garages)), local_net=self.net,
+                   status_interval=1.0, ping_interval=2.0,
+                   device=self.device)
+        self.garages.append(g)
+        self.tasks.append(asyncio.create_task(g.run()))
+        self.alive.append(True)
+
+    async def _mesh(self) -> None:
+        g0 = self.garages[0]
+        live = [g for g, up in zip(self.garages, self.alive) if up]
+        for g in live[1:]:
+            if g0.system.id not in g.netapp.conns:
+                await g.netapp.try_connect(g0.netapp.public_addr,
+                                           g0.system.id)
+                g.system.peering.add_peer(g0.netapp.public_addr,
+                                          g0.system.id)
+        await self._wait(lambda: all(len(g.netapp.conns) >= len(live) - 1
+                                     for g in live), 60, "mesh")
+
+    async def add_node(self):
+        """One more node, joined to the live ones (no layout role yet)
+        -> its Garage."""
+        self._boot()
+        await self._mesh()
+        return self.garages[-1]
+
+    async def start(self) -> None:
         from garage_tpu_torch.rpc.layout import NodeRole
 
-        for i in range(self.n):
-            g = Garage(self._config(i), local_net=self.net,
-                       status_interval=1.0, ping_interval=2.0,
-                       device=self.device)
-            self.garages.append(g)
-            self.tasks.append(asyncio.create_task(g.run()))
-            self.alive.append(True)
+        for _ in range(self.n):
+            self._boot()
         g0 = self.garages[0]
-        for g in self.garages[1:]:
-            await g.netapp.try_connect(g0.netapp.public_addr, g0.system.id)
-            g.system.peering.add_peer(g0.netapp.public_addr, g0.system.id)
-        await self._wait(lambda: all(len(g.netapp.conns) == self.n - 1
-                                     for g in self.garages), 60, "mesh")
+        await self._mesh()
         lm = g0.system.layout_manager
         for g in self.garages:
             lm.history.stage_role(g.system.id,
@@ -782,7 +826,7 @@ class PortCluster:
         await asyncio.gather(self.tasks[i], return_exceptions=True)
 
     async def stop(self) -> None:
-        live = [i for i in range(self.n) if self.alive[i]]
+        live = [i for i, up in enumerate(self.alive) if up]
         for i in live:
             await self.garages[i].netapp.shutdown()
         for i in live:
@@ -790,6 +834,387 @@ class PortCluster:
         for t in self.tasks:
             t.cancel()
         await asyncio.gather(*self.tasks, return_exceptions=True)
+
+
+# ---------------------------------------------------------------------------
+# Durability phase: deep scrub and a node replacement on the S3 phase's
+# deployment
+# ---------------------------------------------------------------------------
+
+
+def time_calls(obj, name: str, acc: dict) -> None:
+    """Wrap obj.name, a coroutine function or a plain one, so that each
+    call adds its wall seconds, one call and, if it raised, one raise to
+    acc[name] = [seconds, calls, raises]."""
+    fn, cell = getattr(obj, name), acc.setdefault(name, [0.0, 0, 0])
+
+    def note(t: float, ok: bool) -> None:
+        cell[0] += time.perf_counter() - t
+        cell[1] += 1
+        cell[2] += not ok
+    if inspect.iscoroutinefunction(fn):
+        async def timed(*a, **kw):
+            t, ok = time.perf_counter(), False
+            try:
+                got = await fn(*a, **kw)
+                ok = True
+                return got
+            finally:
+                note(t, ok)
+    else:
+        def timed(*a, **kw):
+            t, ok = time.perf_counter(), False
+            try:
+                got = fn(*a, **kw)
+                ok = True
+                return got
+            finally:
+                note(t, ok)
+    setattr(obj, name, timed)
+
+
+def durability_plant() -> list[tuple[int, tuple, str]]:
+    """What the durability phase plants, by block index: (block, parts,
+    how). 8 forged shards (valid header checksum, wrong payload), the
+    last 2 on parity rows; 2 shards of the right framing and the wrong
+    length; 2 rotted packed_len headers over the right payload; one
+    block with a forged data and a forged parity shard; and a disk_bitrot
+    fault on the stripe leader's read of one more block."""
+    out = [(b, (b,), "forge") for b in range(6)]
+    out += [(6 + j, (K + j,), "forge") for j in range(2)]
+    out += [(8, (3,), "length"), (9, (1,), "length")]
+    out += [(10, (2,), "header"), (11, (K + 1,), "header")]
+    out += [(12, (2, K + 1), "forge"), (13, (0,), "bitrot")]
+    return out
+
+
+async def durability_phase(data: np.ndarray, root: str, dev) -> dict:
+    """N_BLOCKS blocks from `data` through node 0's
+    BlockManager.rpc_put_block by N_OBJECTS concurrent writers, each
+    referenced on every node of a DUR_NODES-node erasure(K, M) cluster;
+    durability_plant's faults planted; a deep scrub driven through every
+    node's admin RPC (`worker set scrub-tranquility 0`, `repair scrub
+    start`) until every node's scrub-last-completed advances, held
+    against the plant and read back; then the last node stops and loses
+    its data directory, a layout replaces its role by a fresh node in
+    the same zone, and `repair blocks` runs on every node with
+    `resync-tranquility 0` until every resync queue is empty: the new
+    node's shards must equal a host re-encode and every block must read
+    back. -> rates, counters and the rebuild's time split."""
+    from garage_tpu_torch import chaos, native
+    from garage_tpu_torch.admin.http import AdminHttpServer
+    from garage_tpu_torch.block.block import DataBlock
+    from garage_tpu_torch.block.codec import shard_nodes_of
+    from garage_tpu_torch.block.manager import pack_shard, unpack_shard
+    from garage_tpu_torch.ops import gf256, kernel_launches, rs
+
+    width = K + M
+    plant = durability_plant()
+    blocks = [data[b * BLOCK:(b + 1) * BLOCK].tobytes()
+              for b in range(N_BLOCKS)]
+    cluster = PortCluster(root, DUR_NODES, S3_RF, (K, M), BLOCK, dev)
+    rng = np.random.default_rng(SEED + 7)
+    out = {}
+    try:
+        await cluster.start()
+        g0 = cluster.garages[0]
+        bm0 = g0.block_manager
+        admins = [AdminHttpServer(g) for g in cluster.garages]
+
+        async def admin(i: int, op: str, **kw):
+            return await admins[i].rpc._handle(None, {"op": op, **kw}, None)
+
+        def launches_since(before: dict) -> dict:
+            now = kernel_launches()
+            return {n: now[n] - before.get(n, 0) for n in now
+                    if now[n] != before.get(n, 0)}
+
+        def op_items(op: str) -> int:
+            return sum(g.block_manager.feeder.pipeline_stats()["op_items"]
+                       .get(op, 0) for g, up in zip(cluster.garages,
+                                                    cluster.alive) if up)
+
+        def incref_all(g) -> None:
+            bm = g.block_manager
+            bm.db.transaction(lambda tx: [bm.rc.block_incref(tx, h)
+                                          for h in hashes])
+
+        # -- data ---------------------------------------------------------
+        hashes: list = [None] * N_BLOCKS
+
+        async def writer(w: int) -> None:
+            for b in range(w, N_BLOCKS, N_OBJECTS):
+                h = await bm0.hash_block(blocks[b])
+                await bm0.rpc_put_block(h, blocks[b])
+                hashes[b] = h
+
+        t0 = time.perf_counter()
+        await asyncio.gather(*(writer(w) for w in range(N_OBJECTS)))
+        out["put_s"] = time.perf_counter() - t0
+        for g in cluster.garages:
+            incref_all(g)
+        by_id = {g.system.id: g.block_manager for g in cluster.garages}
+        layout = g0.system.layout_helper.current()
+        placements = [shard_nodes_of(layout, h, width) for h in hashes]
+
+        def all_stored() -> bool:
+            return all(i in by_id[p[i]].local_parts(h)
+                       for h, p in zip(hashes, placements)
+                       for i in range(width))
+        deadline = time.monotonic() + DUR_TIMEOUT
+        while not await asyncio.to_thread(all_stored):
+            check(time.monotonic() < deadline,
+                  "durability: not every shard was stored")
+            await asyncio.sleep(0.2)
+
+        # -- the plant ----------------------------------------------------
+        bitrot = None
+        for b, parts, how in plant:
+            h, holders = hashes[b], placements[b]
+            if how == "bitrot":
+                bitrot = (holders[0], h)
+                continue
+            for part in parts:
+                bm = by_id[holders[part]]
+                payload, plen = unpack_shard(bm.read_local_shard(h, part))
+                if how == "forge":
+                    payload = (bytes(x ^ 0xA5 for x in payload[:128])
+                               + payload[128:])
+                elif how == "length":
+                    payload, plen = rng.bytes(len(payload) + 512), 999_999
+                else:
+                    plen = 999_999
+                bm.write_local_shard(h, part, pack_shard(payload, plen))
+        want = {"corruptions": sum(how != "header" for _, _, how in plant),
+                "deep_repaired": sum(how in ("forge", "length")
+                                     for _, _, how in plant),
+                "header_repaired": sum(how == "header"
+                                       for _, _, how in plant)}
+        ctl = chaos.arm(seed=SEED)
+        rot = ctl.add(chaos.FaultSpec(kind="disk_bitrot",
+                                      node=bitrot[0].hex()[:8],
+                                      hash_prefix=bitrot[1].hex()[:8],
+                                      count=1))
+
+        # -- deep scrub, as an operator drives it -------------------------
+        decodes = [0]
+        decode_np = rs.decode_np
+
+        def counted_decode(*a, **kw):
+            decodes[0] += 1
+            return decode_np(*a, **kw)
+        rs.decode_np = counted_decode
+        l0 = kernel_launches()
+        checks0, encodes0 = op_items("parity_check"), op_items("encode_put")
+        repairs0 = op_items("repair")
+        try:
+            last = []
+            for i in range(DUR_NODES):
+                r = await admin(i, "worker_set", name="scrub-tranquility",
+                                value="0")
+                check(float(r["value"]) == 0,
+                      f"scrub-tranquility on node {i}: {r}")
+                last.append(float((await admin(
+                    i, "worker_get", name="scrub-last-completed"))
+                    ["vars"]["scrub-last-completed"]))
+            t_start = time.time()
+            for i in range(DUR_NODES):
+                await admin(i, "repair", what="scrub", cmd="start")
+            done = [None] * DUR_NODES
+            while None in done:
+                check(time.monotonic() < deadline + DUR_TIMEOUT,
+                      "durability: a node's scrub pass did not complete")
+                for i in range(DUR_NODES):
+                    if done[i] is None:
+                        v = float((await admin(
+                            i, "worker_get", name="scrub-last-completed"))
+                            ["vars"]["scrub-last-completed"])
+                        if v > last[i]:
+                            done[i] = v
+                await asyncio.sleep(0.1)
+            out["scrub_s"] = max(done) - t_start
+        finally:
+            rs.decode_np = decode_np
+            chaos.disarm()
+        out["scrub_launches"] = launches_since(l0)
+        out["stripes_checked"] = op_items("parity_check") - checks0
+        out["repair_encodes"] = op_items("encode_put") - encodes0
+        out["host_decodes"] = decodes[0]
+        out["bitrot_fired"] = rot.fired
+        scrub = dict.fromkeys(("block_scrub_corruptions",
+                               "block_scrub_deep_stripes_checked",
+                               "block_scrub_deep_stripes_repaired",
+                               "block_scrub_header_repaired"), 0)
+        for adm in admins:
+            got = gauges(adm.render_metrics())
+            for key in scrub:
+                scrub[key] += int(got[key])
+        out["scrub"] = scrub
+        check(rot.fired == 1, "durability: the disk_bitrot never fired")
+        check(scrub["block_scrub_corruptions"] == want["corruptions"]
+              and scrub["block_scrub_deep_stripes_repaired"]
+              == want["deep_repaired"]
+              and scrub["block_scrub_header_repaired"]
+              == want["header_repaired"],
+              f"durability: scrub counters {scrub} != the plant {want}")
+        check(out["scrub_launches"].get("gf_check", 0) > 0,
+              "durability: G2 never launched in the scrub")
+        check(out["repair_encodes"] == want["deep_repaired"],
+              f"durability: {out['repair_encodes']} re-encodes through the "
+              f"feeder for {want['deep_repaired']} repaired stripes")
+        check(out["scrub_launches"].get("gf_apply", 0) > 0,
+              "durability: G1 never launched in the scrub's repairs")
+
+        def resync_busy() -> list:
+            """-> the live nodes whose resync has work queued or running,
+            each noted in busy_at with the time it was last seen so."""
+            now, busy = time.perf_counter(), []
+            for i, g in enumerate(cluster.garages):
+                q = g.block_manager.resync
+                if cluster.alive[i] and (q.queue_len() or q._in_flight):
+                    busy_at[i] = now
+                    busy.append(i)
+            return busy
+        busy_at: dict = {}
+
+        async def wait_resync(what: str) -> float:
+            t = time.perf_counter()
+            while resync_busy():
+                check(time.monotonic() < deadline + 2 * DUR_TIMEOUT,
+                      f"durability: resync queues never drained ({what})")
+                await asyncio.sleep(0.05)
+            errors = {i: g.block_manager.resync.errors_len()
+                      for i, g in enumerate(cluster.garages)
+                      if cluster.alive[i]
+                      and g.block_manager.resync.errors_len()}
+            check(not errors, f"durability: resync errors ({what}) {errors}")
+            return time.perf_counter() - t
+
+        await wait_resync("after the scrub")
+        out["scrub_resync_repairs"] = op_items("repair") - repairs0
+
+        async def read_all(what: str) -> float:
+            t = time.perf_counter()
+            sem = asyncio.Semaphore(N_OBJECTS)
+
+            async def one(b: int) -> None:
+                async with sem:
+                    got = await bm0.rpc_get_block(hashes[b])
+                check(got == blocks[b],
+                      f"durability: block {b} differs ({what})")
+            await asyncio.gather(*(one(b) for b in range(N_BLOCKS)))
+            return time.perf_counter() - t
+
+        out["read_after_scrub_s"] = await read_all("after the scrub")
+
+        # -- node replacement ---------------------------------------------
+        gone = DUR_NODES - 1
+        gone_id = cluster.garages[gone].system.id
+        await cluster.stop_node(gone)
+        shutil.rmtree(os.path.join(root, f"node{gone:02d}", "data"))
+        fresh = await cluster.add_node()
+        admins.append(AdminHttpServer(fresh))
+        incref_all(fresh)
+        new = len(cluster.garages) - 1
+        # the rebuild's time split, node by node: a block's resync, the
+        # probe of every other node for the wanted shard, the gather of
+        # K shards, the feeder's batched repair (G1) and the shard write
+        split = {}
+        for i, g in enumerate(cluster.garages):
+            if cluster.alive[i]:
+                bm, acc = g.block_manager, split.setdefault(i, {})
+                time_calls(bm.resync, "resync_block", acc)
+                time_calls(bm.resync, "_fetch_shard", acc)
+                time_calls(bm, "_gather_parts", acc)
+                time_calls(bm.feeder, "repair", acc)
+                time_calls(bm, "write_local_shard", acc)
+        busy_at.clear()
+        l0 = kernel_launches()
+        repairs0 = op_items("repair")
+        t0 = time.perf_counter()
+        await admin(0, "layout_remove", node=gone_id)
+        await admin(0, "layout_assign", node=fresh.system.id, zone="dc1",
+                    capacity=1 << 40)
+        v = (await admin(0, "layout_apply"))["version"]
+        live = [i for i, up in enumerate(cluster.alive) if up]
+        await cluster._wait(lambda: all(
+            cluster.garages[i].system.layout_helper.current().version == v
+            for i in live), 60, f"layout v{v}")
+        for i in live:
+            r = await admin(i, "worker_set", name="resync-tranquility",
+                            value="0")
+            check(float(r["value"]) == 0,
+                  f"resync-tranquility on node {i}: {r}")
+            await admin(i, "repair", what="blocks")
+        layout = g0.system.layout_helper.current()
+        fm = fresh.block_manager
+        assigned = [(b, shard_nodes_of(layout, h, width))
+                    for b, h in enumerate(hashes)]
+        assigned = [(b, p.index(fresh.system.id)) for b, p in assigned
+                    if fresh.system.id in p]
+
+        def rebuilt() -> bool:
+            return all(i in fm.local_parts(hashes[b]) for b, i in assigned)
+        # a rebuild that fails waits out the resync error backoff: the
+        # wait below, and replace_s, include it
+        while not await asyncio.to_thread(rebuilt):
+            check(time.monotonic() < deadline + 2 * DUR_TIMEOUT,
+                  "durability: the new node's shards were never rebuilt")
+            resync_busy()
+            await asyncio.sleep(0.5)
+        await wait_resync("after the node replacement")
+        out["replace_s"] = time.perf_counter() - t0
+        out["busy_s"] = {i: at - t0 for i, at in busy_at.items()}
+        out["split"] = {i: {name: list(cell) for name, cell in acc.items()}
+                        for i, acc in split.items()}
+        out["replace_launches"] = launches_since(l0)
+        out["rebuild_items"] = op_items("repair") - repairs0
+
+        # node `new` holds every shard the new placement gives it, each
+        # equal to a host re-encode (the native oracle, and the numpy RS
+        # for the row)
+        pmat = rs.parity_matrix(K, M)
+
+        def held_against_host() -> int:
+            nbytes = 0
+            for b, h in enumerate(hashes):
+                check(gone_id not in shard_nodes_of(layout, h, width),
+                      "durability: the old node still placed")
+            for b, i in assigned:
+                raw = fm.read_local_shard(hashes[b], i)
+                check(raw is not None,
+                      f"durability: block {b} shard {i} missing on the new "
+                      f"node")
+                blk = DataBlock.compress(blocks[b])
+                want_raw = native.rs_encode_packed(
+                    blk.bytes, K, M, pmat, prefix=bytes([blk.compression]))[i]
+                stripe = rs.split_stripe(blk.pack(), K)
+                row = (stripe[i] if i < K
+                       else gf256.gf_matmul(pmat[i - K:i - K + 1],
+                                            stripe)[0])
+                payload, _ = unpack_shard(raw)
+                check(bytes(raw) == bytes(want_raw)
+                      and payload == row.tobytes(),
+                      f"durability: block {b} shard {i} on the new node != "
+                      f"the host re-encode")
+                nbytes += len(raw)
+            return nbytes
+        out["rebuilt_bytes"] = await asyncio.to_thread(held_against_host)
+        check(out["rebuilt_bytes"] > 0, "durability: nothing rebuilt")
+        check(out["replace_launches"].get("gf_apply", 0) > 0,
+              "durability: G1 never launched in the rebuild")
+        out["read_after_replace_s"] = await read_all(
+            "after the node replacement")
+        out["fallbacks"] = {
+            i: g.block_manager.feeder.stats["device_fallbacks"]
+            for i, g in enumerate(cluster.garages)}
+        check(not any(out["fallbacks"].values()),
+              f"durability: device fallbacks {out['fallbacks']}")
+        out["nodes"] = len(live)
+        out["new_node"] = new
+        return out
+    finally:
+        await cluster.stop()
 
 
 def device_busy(prof, path: str) -> dict:
@@ -1830,6 +2255,10 @@ def main() -> int:
         s3_launches = kernel_launches()
         s3_b3_batches = dict(sorted(treehash.batch_sizes.items()))
         knobs = asyncio.run(tpu_knob_check(data, dev))
+        reset_launches()
+        dur = asyncio.run(durability_phase(
+            data, os.path.join(root, "durability"), dev))
+        dur_launches = kernel_launches()
         # grid phase: what the steps and the grid feeder must give first
         # (plain composition, one-device feeder), then the path itself
         gref = grid_reference(torch, data, dev)
@@ -1947,6 +2376,69 @@ def main() -> int:
         check(s3_launches[name] > 0,
               f"kernel {name} was not launched on the S3 path")
 
+    sc = dur["scrub"]
+    sl, rl = dur["scrub_launches"], dur["replace_launches"]
+    per_g2 = dur["stripes_checked"] / max(1, sl.get("gf_check", 0))
+    per_g1 = dur["rebuild_items"] / max(1, rl.get("gf_apply", 0))
+    print(f"durability phase ({smi[0]}): {dur['nodes']}-node erasure(10,4) "
+          f"port cluster on {dev}, {N_BLOCKS} blocks of 1 MiB written "
+          f"through node 0's rpc_put_block by {N_OBJECTS} writers in "
+          f"{dur['put_s']:.2f} s, every block referenced on every node")
+    print(f"deep scrub (scrub-tranquility 0, `repair scrub start` on every "
+          f"node): {N_BLOCKS / dur['scrub_s']:.1f} blocks/s ({N_BLOCKS} "
+          f"blocks over the slowest node's pass, {dur['scrub_s']:.2f} s); "
+          f"/metrics summed over the nodes {json.dumps(sc)}, equal to the "
+          f"plant; disk_bitrot fired {dur['bitrot_fired']} time(s); G2 "
+          f"launches {sl.get('gf_check', 0)} for {dur['stripes_checked']} "
+          f"stripes ({per_g2:.2f} stripes "
+          f"per launch); G1 launches {sl.get('gf_apply', 0)} ("
+          f"{dur['repair_encodes']} repair re-encodes through the feeder, "
+          f"{dur['scrub_resync_repairs']} resync rebuilds); localisation "
+          f"decodes on the host {dur['host_decodes']}; all {N_BLOCKS} "
+          f"blocks read back byte-equal through node 0 in "
+          f"{dur['read_after_scrub_s']:.2f} s; launches "
+          f"{json.dumps(sl)}")
+    writes, here = (dur["split"][dur["new_node"]][name][1]
+                    for name in ("write_local_shard", "repair"))
+    print(f"node replacement (node {dur['nodes'] - 1} stopped and wiped, "
+          f"node {dur['new_node']} takes its role in the same zone, "
+          f"`repair blocks` with resync-tranquility 0 on every node): "
+          f"{dur['rebuilt_bytes'] / dur['replace_s'] / 1e9:.4f} GB/s "
+          f"({dur['rebuilt_bytes']} shard bytes on the new node, each equal "
+          f"to the host re-encode: {writes - here} fetched from their old "
+          f"holders, {here} rebuilt there), queues drained "
+          f"{dur['replace_s']:.2f} s after the layout change; G1 launches "
+          f"{rl.get('gf_apply', 0)} for {dur['rebuild_items']} feeder "
+          f"repair items across the cluster, the shards lost with node "
+          f"{dur['nodes'] - 1} ({per_g1:.2f} per launch); all {N_BLOCKS} "
+          f"blocks read back byte-equal in "
+          f"{dur['read_after_replace_s']:.2f} s; 0 fallbacks on all nodes; "
+          f"launches {json.dumps(rl)}")
+
+    def calls(acc: dict) -> str:
+        return ", ".join(f"{name} {t:.2f} s / {n} = {1e3 * t / max(1, n):.2f}"
+                         f" ms ({r} raised)"
+                         for name, (t, n, r) in acc.items())
+    new, split = dur["new_node"], dur["split"]
+    others = {}
+    for i, acc in split.items():
+        for name, cell in acc.items():
+            if i != new:
+                into = others.setdefault(name, [0.0, 0, 0])
+                for j in range(3):
+                    into[j] += cell[j]
+    busy = dur["busy_s"]
+    slowest = max((t for i, t in busy.items() if i != new), default=0.0)
+    print(f"rebuild time split ({smi[0]}; wall seconds summed over calls, "
+          f"calls overlap on one event loop): new node {new}: "
+          f"{calls(split[new])}; the {len(split) - 1} other nodes together: "
+          f"{calls(others)}; resync busy until {busy.get(new, 0):.2f} s "
+          f"(new node), {slowest:.2f} s (slowest other node) after the "
+          f"layout change")
+    for name in ("gf_apply", "gf_check"):
+        check(dur_launches.get(name, 0) > 0,
+              f"kernel {name} was not launched on the durability path")
+
     for grid, steps in gsteps.items():
         print(f"grid {grid} [{dev}], {GRID_B} stripes RS(10,4) of "
               f"{GRID_S} B a shard: "
@@ -2032,10 +2524,11 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": (launches[name] + s3_launches[name]
-                         + grid_launches[name]
+                         + dur_launches.get(name, 0) + grid_launches[name]
                          + gw["worker_launches"].get(name, 0)),
             "launches_by_path": {
                 "block": launches[name], "s3": s3_launches[name],
+                "durability": dur_launches.get(name, 0),
                 "grid": grid_launches[name],
                 "gateway": gw["worker_launches"].get(name, 0)},
             "max_abs_err": r["err"], "ms": r["ms"],

@@ -11,14 +11,16 @@ package.
 
 `load_reference_suite` applies the same import rewrite to a test module
 of the JAX package, so that its tests run against the port (the
-test_torch_s3_api, test_torch_s3_fastpath, test_torch_k2v and
-test_torch_gateway files)."""
+test_torch_<suite> files that name it), and points the module's imports
+of its sibling helpers (HELPERS) at the port's versions of them."""
 
 from __future__ import annotations
 
 import ast
 import os
 import re
+import sys
+import types
 
 import pytest
 
@@ -76,6 +78,96 @@ PORT_MAIN = ("import runpy, sys; sys.modules['jax'] = None; "
 _RUN_MODULE = re.compile(
     r'\[sys\.executable, "-m", "(garage_tpu_torch\.[\w.]+)"')
 
+# the sibling files of tests/ that a reference suite imports helpers
+# from, each with the edits that make the nodes it builds port nodes on
+# the CPU (the port's constructors default to "cuda"). A suite gets the
+# port's version of each: the file loaded once with the same rewrite and
+# these edits, as the module _port_<name> in sys.modules.
+HELPERS = {
+    "test_block": (
+        ("BlockManager(s, db, lay, cache_tier=cache_tier)",
+         'BlockManager(s, db, lay, cache_tier=cache_tier, device="cpu")'),
+        ("def test_erasure_codec_roundtrip():\n"
+         "    codec = ErasureCodec(4, 2, use_jax=False)",
+         "def test_erasure_codec_roundtrip():\n"
+         '    codec = ErasureCodec(4, 2, device="cpu")'),
+        ("def test_erasure_codec_batch():\n"
+         "    codec = ErasureCodec(4, 2, use_jax=False)",
+         "def test_erasure_codec_batch():\n"
+         '    codec = ErasureCodec(4, 2, device="cpu")'),
+    ),
+    "test_model": (
+        ("status_interval=0.2, ping_interval=0.2))",
+         'status_interval=0.2, ping_interval=0.2, device="cpu"))'),
+    ),
+    "clusterbox": (
+        ("ping_interval=self.ping_interval)",
+         'ping_interval=self.ping_interval, device="cpu")'),
+    ),
+    "test_rpc": (),
+    "test_layout": (),
+}
+_HELPER_IMPORT = re.compile(
+    r"^(\s*)(from (%s) import |import (%s)\b)" % (("|".join(HELPERS),) * 2),
+    re.M)
+_BARE_IMPORT = re.compile(r"^\s*(from garage_tpu import|import garage_tpu\b)",
+                          re.M)
+
+
+def _port_text(name: str, edits=(), n_entry_points: int = 0) -> str:
+    """tests/<name>.py with copy_text's import rewrite, its sibling
+    helper imports pointed at the port's helpers (loaded here first),
+    its entry-point commands run as the port's modules, then HELPERS'
+    edits for <name> and `edits`, each of which must match once."""
+    with open(os.path.join(REPO, "tests", name + ".py")) as f:
+        text = _REWRITE.sub("garage_tpu_torch", f.read())
+    text, n = _RUN_MODULE.subn(
+        lambda m: ('[sys.executable, "-c", '
+                   f'PORT_MAIN.format(mod={m.group(1)!r})'), text)
+    assert n == n_entry_points, (name, n)
+    # the rewrite needs a dotted path: a bare package import would reach
+    # the JAX package
+    assert not _BARE_IMPORT.search(text), name
+    for old, new in (*HELPERS.get(name, ()), *edits):
+        assert text.count(old) == 1, (name, old)
+        text = text.replace(old, new)
+
+    def helper(m):
+        lead, sib = m.group(1), m.group(3) or m.group(4)
+        mod = port_helper(sib).__name__
+        if m.group(3):
+            return f"{lead}from {mod} import "
+        return f"{lead}import {mod} as {sib}"
+    return _HELPER_IMPORT.sub(helper, text)
+
+
+def _exec(name: str, text: str, namespace: dict) -> None:
+    """Run `text` into `namespace` with its asserts rewritten as pytest
+    does for a test file; tracebacks name the reference file's lines."""
+    from _pytest.assertion.rewrite import rewrite_asserts
+
+    path = os.path.join(REPO, "tests", name + ".py")
+    tree = ast.parse(text, path)
+    rewrite_asserts(tree, text.encode(), path)
+    exec(compile(tree, path, "exec", dont_inherit=True), namespace)
+
+
+def port_helper(name: str) -> types.ModuleType:
+    """The port's version of sibling helper tests/<name>.py (one of
+    HELPERS), loaded on first use as sys.modules["_port_<name>"]."""
+    modname = "_port_" + name
+    if modname not in sys.modules:
+        mod = types.ModuleType(modname)
+        mod.__file__ = os.path.join(REPO, "tests", name + ".py")
+        text = _port_text(name)
+        sys.modules[modname] = mod
+        try:
+            _exec(name, text, mod.__dict__)
+        except BaseException:
+            del sys.modules[modname]
+            raise
+    return sys.modules[modname]
+
 
 def load_reference_suite(name: str, namespace: dict, edits=(),
                          n_entry_points: int = 0) -> None:
@@ -84,28 +176,69 @@ def load_reference_suite(name: str, namespace: dict, edits=(),
     there, against the port. The text gets copy_text's import rewrite;
     every `[sys.executable, "-m", "garage_tpu_torch.<mod>"` command (there
     must be `n_entry_points`) becomes the port's module run with jax and
-    garage_tpu blocked; then each (old, new) of `edits` is applied and
-    must match exactly once. The reference module itself is never
-    imported or changed. Asserts are rewritten as pytest does for a test
-    file; tracebacks name the reference file's lines."""
-    from _pytest.assertion.rewrite import rewrite_asserts
-
-    path = os.path.join(REPO, "tests", name + ".py")
-    with open(path) as f:
-        text = _REWRITE.sub("garage_tpu_torch", f.read())
-    text, n = _RUN_MODULE.subn(
-        lambda m: ('[sys.executable, "-c", '
-                   f'PORT_MAIN.format(mod={m.group(1)!r})'), text)
-    assert n == n_entry_points, (name, n)
-    for old, new in edits:
-        assert text.count(old) == 1, (name, old)
-        text = text.replace(old, new)
-    tree = ast.parse(text, path)
-    rewrite_asserts(tree, text.encode(), path)
+    garage_tpu blocked; each (old, new) of HELPERS[name] and of `edits`
+    is applied and must match exactly once; and its `from <helper>
+    import` / `import <helper>` lines for a sibling file of HELPERS take
+    the port's version of that file (`_port_<helper>`). The reference
+    files themselves are never imported or changed."""
+    text = _port_text(name, edits, n_entry_points)
     doc = namespace.get("__doc__")
     namespace["PORT_MAIN"] = PORT_MAIN
-    exec(compile(tree, path, "exec", dont_inherit=True), namespace)
+    namespace["_port_nodes_only"] = pytest.fixture(autouse=True)(
+        _port_nodes_only)
+    _exec(name, text, namespace)
     namespace["__doc__"] = doc
+
+
+# faults that a reference test arms on purpose where they cannot fire:
+# test name -> how many
+_INERT_FAULTS = {
+    # a partition_zone with no zone, and one with no zone resolver
+    "test_partition_zone_fault_matching": 2,
+    # armed over the admin API on an endpoint that no call uses
+    "test_admin_chaos_roundtrip_and_metrics": 1,
+}
+
+
+def _port_nodes_only(request, monkeypatch):
+    """Every test of a reference suite run against the port builds no
+    node of the JAX package (no garage_tpu System, BlockManager or
+    Garage) and arms no fault on its injector; every fault it arms on
+    the port's injector fires there, but for _INERT_FAULTS."""
+    import importlib
+
+    from garage_tpu_torch.chaos import injector
+
+    built = []
+    for mod, cls in (("rpc.system", "System"), ("block.manager",
+                     "BlockManager"), ("model.garage", "Garage"),
+                     ("chaos.injector", "ChaosController")):
+        klass = getattr(importlib.import_module("garage_tpu." + mod), cls)
+
+        def init(self, *a, _init=klass.__init__, _cls=cls, **kw):
+            built.append(_cls)
+            _init(self, *a, **kw)
+        monkeypatch.setattr(klass, "__init__", init)
+    armed = []
+    add = injector.ChaosController.add
+
+    def record(self, spec):
+        armed.append(add(self, spec))
+        return armed[-1]
+    monkeypatch.setattr(injector.ChaosController, "add", record)
+    jax_add = importlib.import_module("garage_tpu.chaos.injector") \
+        .ChaosController.add
+
+    def jax_record(self, spec):
+        built.append("a fault on ChaosController")
+        return jax_add(self, spec)
+    monkeypatch.setattr(importlib.import_module(
+        "garage_tpu.chaos.injector").ChaosController, "add", jax_record)
+    yield
+    assert not built, f"the test built JAX package objects: {built}"
+    idle = [s.kind for s in armed if s.fired == 0]
+    assert len(idle) == _INERT_FAULTS.get(request.node.name, 0), (
+        f"chaos faults armed but never fired: {idle}")
 
 
 def _modules():

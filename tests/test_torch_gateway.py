@@ -9,23 +9,14 @@ processes on the same device.
 
 The reference file, and the block-cluster helpers it takes from
 tests/test_block.py, are read as text and executed here with the import
-rewrite of tests/test_torch_copies.py (`load_reference_suite`); neither
-is imported or changed. The forked server is the port's S3 suite's
-(tests/test_torch_s3_api.py `Server`).
+and sibling-helper rewrite of tests/test_torch_copies.py
+(`load_reference_suite`); neither is imported or changed. The forked
+server is the port's S3 suite's (tests/test_torch_s3_api.py `Server`).
 """
 
 from test_torch_copies import load_reference_suite
 
-_block: dict = {}
-load_reference_suite(
-    "test_block", _block,
-    edits=[("BlockManager(s, db, lay, cache_tier=cache_tier)",
-            'BlockManager(s, db, lay, cache_tier=cache_tier, device="cpu")')])
-
 load_reference_suite(
     "test_gateway", globals(),
-    edits=[("from test_block import make_block_cluster, stop_all",
-            'make_block_cluster, stop_all = (_block["make_block_cluster"], '
-            '_block["stop_all"])'),
-           ("from test_s3_api import Server",
+    edits=[("from test_s3_api import Server",
             "from test_torch_s3_api import Server")])
