@@ -41,13 +41,25 @@ each kernel's times as one JSON line: run it for two checkouts in turns
    - scrub: verify_blocks and parity_check over every stripe with one
      flipped byte planted in one shard: exactly that stripe is flagged;
    - repair: the 4 erased shards of every block rebuilt byte-identical.
+3b. Router phase, with the launch counts set to 0 again: a
+   DeviceFeeder(mode="auto") on cuda:0 (its mode and its backend,
+   TorchDeviceBackend, checked) calibrates the host route and the
+   device route (B3, G1 encode and decode launched), prints its MB/s
+   per op and route, then runs the block path above at full width: the
+   content hashes, the BLAKE3 of every block's 14 framed shards and the
+   ETags equal the "require" run's, each op's items on each route and
+   the trials are printed, 0 fallbacks. A mode="off" feeder runs the
+   first quarter the same way: byte-equal and 0 launches. Last, the S3
+   phase's deployment (14 nodes) built with `[tpu] enable = false` on
+   cuda:0 answers a signed aws-chunked PUT of 16 MiB and its GET with 0
+   launches.
 4. S3 path, with the launch counts set to 0 again: 14 port Garage nodes
    on cuda:0 in this process (erasure(10,4), 1 MiB blocks, loopback
    transport); node 0 serves S3, the admin HTTP API, K2V and the web
    front end on loopback TCP ports. Through the admin API: the key, the
    bucket, its permissions and website access, and
-   `feeder_inflight_batches` set to 2, read back and restored to 3
-   (a host-routing floor is refused). 8 client threads
+   `feeder_inflight_batches` set to 2, read back and restored to 3,
+   the routing floor `feeder_device_min_bytes` likewise. 8 client threads
    (tests/s3util.py, an independent stdlib signer) PUT 64 objects of
    16 MiB as STREAMING-AWS4-HMAC-SHA256-PAYLOAD in 64 KiB chunks, 8
    more the same way under torch.profiler (the device's busy time and
@@ -599,27 +611,36 @@ def sha256_kernel(torch, data: np.ndarray, dev, sm_hz: float) -> dict:
 # ---------------------------------------------------------------------------
 
 
-async def main_path(data: np.ndarray, root: str, rng, dev) -> dict:
+async def main_path(data: np.ndarray, root: str, rng, dev, feeder=None,
+                    n_blocks: int = N_BLOCKS) -> dict:
+    """PUT, degraded GET, scrub and repair of the first `n_blocks` blocks
+    of `data` through `feeder` (default: a "require" feeder on `dev`),
+    which is stopped at the end. -> rates, the feeder's counters, and
+    per block its content hash and the BLAKE3 of its 14 framed shards
+    (the outputs two feeders are held equal on)."""
     from garage_tpu_torch import native
     from garage_tpu_torch.block.codec import ErasureCodec
     from garage_tpu_torch.block.feeder import DeviceFeeder
     from garage_tpu_torch.block.manager import unpack_shard
 
-    feeder = DeviceFeeder(codec=ErasureCodec(K, M, device=dev),
-                          mode="require", max_batch=BATCH, device=dev)
+    if feeder is None:
+        feeder = DeviceFeeder(codec=ErasureCodec(K, M, device=dev),
+                              mode="require", max_batch=BATCH, device=dev)
     nodes = [os.path.join(root, f"node{j:02d}") for j in range(K + M)]
     for d in nodes:
         os.makedirs(d)
     blocks = [data[i * BLOCK:(i + 1) * BLOCK].tobytes()
-              for i in range(N_BLOCKS)]
-    hashes: list = [None] * N_BLOCKS
-    per_obj = N_BLOCKS // N_OBJECTS
+              for i in range(n_blocks)]
+    hashes: list = [None] * n_blocks
+    shard_digests: list = [None] * n_blocks
+    per_obj = n_blocks // N_OBJECTS
     rates = {}
 
     def write_shards(i: int, parts) -> None:
         for j, part in enumerate(parts):
             with open(os.path.join(nodes[j], f"{i:05d}"), "wb") as f:
                 f.write(part)
+        shard_digests[i] = native.blake3(b"".join(bytes(p) for p in parts))
 
     def read_shards(i: int, which) -> list:
         out = []
@@ -662,12 +683,13 @@ async def main_path(data: np.ndarray, root: str, rng, dev) -> dict:
             check(etag == want, f"ETag of object {o}: {etag} != {want}")
         host = native.blake3_many(blocks)
         check(hashes == host, "content hash != host BLAKE3")
+        rates["etags"] = etags
 
         # degraded GET: 4 shards erased, pattern per block
         pats = patterns(rng, 32)
-        pat_of = [pats[i % len(pats)] for i in range(N_BLOCKS)]
+        pat_of = [pats[i % len(pats)] for i in range(n_blocks)]
         t0 = time.perf_counter()
-        for w in range(0, N_BLOCKS, BATCH):
+        for w in range(0, n_blocks, BATCH):
             idx = range(w, w + BATCH)
             reads = await asyncio.gather(*(asyncio.to_thread(
                 read_shards, i, pat_of[i][0][:K]) for i in idx))
@@ -682,10 +704,10 @@ async def main_path(data: np.ndarray, root: str, rng, dev) -> dict:
         rates["get_s"] = time.perf_counter() - t0
 
         # scrub: one flipped byte in one data shard of one stripe
-        bad_block, bad_shard = int(rng.integers(N_BLOCKS)), int(rng.integers(K))
+        bad_block, bad_shard = int(rng.integers(n_blocks)), int(rng.integers(K))
         t0 = time.perf_counter()
         flagged_hash, flagged_parity = [], []
-        for w in range(0, N_BLOCKS, BATCH):
+        for w in range(0, n_blocks, BATCH):
             idx = list(range(w, w + BATCH))
             reads = await asyncio.gather(*(asyncio.to_thread(
                 read_shards, i, range(K + M)) for i in idx))
@@ -709,7 +731,7 @@ async def main_path(data: np.ndarray, root: str, rng, dev) -> dict:
 
         # repair: rebuild the erased shards of every block
         t0 = time.perf_counter()
-        for w in range(0, N_BLOCKS, BATCH):
+        for w in range(0, n_blocks, BATCH):
             idx = range(w, w + BATCH)
             reads = await asyncio.gather(*(asyncio.to_thread(
                 read_shards, i, range(K + M)) for i in idx))
@@ -723,9 +745,150 @@ async def main_path(data: np.ndarray, root: str, rng, dev) -> dict:
         rates["repair_s"] = time.perf_counter() - t0
         rates["stats"] = dict(feeder.stats)
         rates["pipeline"] = feeder.pipeline_stats()
+        rates["hashes"], rates["shard_digests"] = hashes, shard_digests
         return rates
     finally:
         await feeder.stop()
+
+
+# ---------------------------------------------------------------------------
+# Router phase: the feeder's "auto" and "off" modes, and a host-only node
+# ---------------------------------------------------------------------------
+
+
+def route_split(stats: dict, pipeline: dict) -> dict:
+    """Items by op on each route, the trials and the fallbacks."""
+    ops = sorted(set(pipeline["op_items"]) | set(pipeline["op_host_items"]))
+    return {"ops": {op: {"device": pipeline["op_items"].get(op, 0),
+                         "host": pipeline["op_host_items"].get(op, 0)}
+                    for op in ops},
+            "inline_items": stats["inline_items"], "trials": stats["trials"],
+            "device_fallbacks": stats["device_fallbacks"]}
+
+
+async def router_phase(data: np.ndarray, root: str, rng, dev,
+                       ref: dict) -> dict:
+    """An "auto" feeder on `dev` (calibrated first) through the block
+    path at full width, then an "off" feeder through its first quarter,
+    each held byte for byte against `ref` (the "require" run) and the
+    native oracles; "off" must launch nothing. -> rates, routes and the
+    launches of each part."""
+    import torch
+
+    from garage_tpu_torch.block.codec import ErasureCodec
+    from garage_tpu_torch.block.device_backend import TorchDeviceBackend
+    from garage_tpu_torch.block.feeder import DeviceFeeder
+    from garage_tpu_torch.ops import kernel_launches, reset_launches
+
+    out = {}
+    feeder = DeviceFeeder(codec=ErasureCodec(K, M, device=dev), mode="auto",
+                          max_batch=BATCH, device=dev)
+    check(feeder.mode == "auto", f"the auto feeder runs {feeder.mode!r} "
+          f"(GARAGE_TPU_DEVICE={os.environ.get('GARAGE_TPU_DEVICE')!r})")
+    backend = feeder._get_backend()
+    check(type(backend) is TorchDeviceBackend,
+          f"the auto feeder's backend is {type(backend).__name__}")
+    t0 = time.perf_counter()
+    await feeder.ready()
+    out["calibration_s"] = time.perf_counter() - t0
+    out["calibration_launches"] = kernel_launches()
+    out["calibration"] = feeder.perf_summary()
+    cal = out["calibration_launches"]
+    # (only CUDA launches count: a CPU rehearsal skips this gate)
+    check(torch.device(dev).type != "cuda"
+          or (cal["blake3_rows"] >= 1 and cal["gf_apply"] >= 2),
+          f"calibration's device legs did not launch B3 and G1 (encode "
+          f"and decode): {cal}")
+    n_blocks = len(ref["hashes"])
+    auto = await main_path(data, os.path.join(root, "auto"), rng, dev,
+                           feeder=feeder, n_blocks=n_blocks)
+    out["auto"], out["auto_launches"] = auto, kernel_launches()
+    out["auto_route"] = route_split(auto["stats"], auto["pipeline"])
+    out["rates_after"] = feeder.perf_summary()
+    for key in ("hashes", "shard_digests", "etags"):
+        check(auto[key] == ref[key],
+              f"auto feeder: {key} differ from the require run")
+    check(auto["stats"]["device_fallbacks"] == 0,
+          "device fallbacks in the auto feeder")
+
+    reset_launches()
+    quarter = n_blocks // 4
+    off = DeviceFeeder(codec=ErasureCodec(K, M, device=dev), mode="off",
+                       max_batch=BATCH, device=dev)
+    res = await main_path(data, os.path.join(root, "off"), rng, dev,
+                          feeder=off, n_blocks=quarter)
+    out["off"], out["off_launches"] = res, kernel_launches()
+    for key in ("hashes", "shard_digests"):
+        check(res[key] == ref[key][:quarter],
+              f"off feeder: {key} differ from the require run")
+    check(sum(out["off_launches"].values()) == 0,
+          f"the off feeder launched kernels: {out['off_launches']}")
+    check(res["stats"]["device_items"] == 0 and off._backend is None,
+          "the off feeder reached the device")
+    return out
+
+
+async def host_node_phase(data: np.ndarray, root: str, dev) -> dict:
+    """The S3 phase's deployment (14 port nodes, erasure(10,4), 1 MiB
+    blocks) with `[tpu] enable = false` on `dev`: one signed aws-chunked
+    PUT of 16 MiB and its GET through node 0's S3 front end, checked by
+    bytes and MD5 ETag. -> timings and every node's feeder mode."""
+    import concurrent.futures
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from s3util import S3Client
+
+    from garage_tpu_torch.admin.http import AdminHttpServer
+    from garage_tpu_torch.admin.rpc import AdminRpcHandler
+    from garage_tpu_torch.api.s3.api_server import S3ApiServer
+
+    obj = data[:S3_OBJ_SIZE].tobytes()
+    cluster = PortCluster(root, 14, S3_RF, (K, M), BLOCK, dev,
+                          tpu_enable=False)
+    loop = asyncio.get_running_loop()
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    servers, out = [], {}
+    try:
+        await cluster.start()
+        g0 = cluster.garages[0]
+        g0.config.admin_token = ADMIN_TOKEN
+        s3 = S3ApiServer(g0)
+        for srv in (s3, AdminHttpServer(g0, admin_rpc=AdminRpcHandler(g0))):
+            await srv.start("127.0.0.1", 0)
+            servers.append(srv)
+        port, admin_port = (srv.http.bound_port for srv in servers)
+        feeder = g0.block_manager.feeder
+        key = await loop.run_in_executor(pool, admin_setup,
+                                         AdminApi(admin_port), feeder)
+        client = S3Client("127.0.0.1", port, *key)
+        chunks = [obj[j:j + S3_CHUNK] for j in range(0, len(obj), S3_CHUNK)]
+        t0 = time.perf_counter()
+        st, hdr, body = await loop.run_in_executor(
+            pool, client.put_chunked, "/smoke/host-only", chunks)
+        out["put_s"] = time.perf_counter() - t0
+        check(st == 200, f"host-only node PUT: {st} {body[:300]!r}")
+        check(hdr.get("etag", "").strip('"') == hashlib.md5(obj).hexdigest(),
+              f"host-only node ETag {hdr.get('etag')}")
+        t0 = time.perf_counter()
+        st, _hdr, body = await loop.run_in_executor(
+            pool, lambda: client.request("GET", "/smoke/host-only",
+                                         timeout=120))
+        out["get_s"] = time.perf_counter() - t0
+        check(st == 200 and body == obj, f"host-only node GET: {st}")
+        out["modes"] = sorted({g.block_manager.feeder.mode
+                               for g in cluster.garages})
+        out["stats"] = dict(feeder.stats)
+        check(out["modes"] == ["off"], f"feeder modes {out['modes']}")
+        check(all(g.block_manager.feeder._backend is None
+                  for g in cluster.garages),
+              "a host-only node built a device backend")
+        out["chunks"] = len(chunks)
+        return out
+    finally:
+        for srv in servers:
+            await srv.stop()
+        await cluster.stop()
+        pool.shutdown()
 
 
 # ---------------------------------------------------------------------------
@@ -738,10 +901,11 @@ class PortCluster:
     transport (net/local.py), one storage role each, one zone."""
 
     def __init__(self, root: str, n: int, rf: int, erasure: tuple,
-                 block_size: int, device):
+                 block_size: int, device, tpu_enable: bool = True):
         from garage_tpu_torch.net import LocalNetwork
 
         self.root, self.n, self.rf = root, n, rf
+        self.tpu_enable = tpu_enable
         self.erasure, self.block_size, self.device = erasure, block_size, device
         self.net = LocalNetwork()
         self.garages: list = []
@@ -749,7 +913,8 @@ class PortCluster:
         self.alive: list = []
 
     def _config(self, i: int):
-        from garage_tpu_torch.utils.config import Config, DataDir, QosConfig
+        from garage_tpu_torch.utils.config import (Config, DataDir, QosConfig,
+                                                   TpuConfig)
 
         d = os.path.join(self.root, f"node{i:02d}")
         return Config(metadata_dir=os.path.join(d, "meta"),
@@ -762,7 +927,8 @@ class PortCluster:
                       block_read_cache_max_bytes=0,
                       block_cache_packed_max_bytes=0,
                       block_cache_tier=False,
-                      qos=QosConfig(governor=False))
+                      qos=QosConfig(governor=False),
+                      tpu=TpuConfig(enable=self.tpu_enable))
 
     def _boot(self) -> None:
         from garage_tpu_torch.model.garage import Garage
@@ -1274,8 +1440,9 @@ class AdminApi:
 def admin_setup(api: AdminApi, feeder) -> tuple[str, str]:
     """The smoke key and bucket (with website access) through the admin
     HTTP API, and /v1/s3/tuning's `feeder_inflight_batches` set to 2,
-    read back, and restored to 3 before the timed rounds. -> (key id,
-    secret)."""
+    read back, and restored to 3, and the routing floor
+    `feeder_device_min_bytes` set to 1 MiB, read back and restored,
+    before the timed rounds. -> (key id, secret)."""
     st, k = api.call("POST", "/v1/key", {"name": "chip-smoke"})
     check(st == 200 and k["accessKeyId"].startswith("GK"),
           f"admin POST /v1/key: {st} {k!r}")
@@ -1298,8 +1465,16 @@ def admin_setup(api: AdminApi, feeder) -> tuple[str, str]:
         st, r = api.call("GET", "/v1/s3/tuning")
         check(st == 200 and r["feeder_inflight_batches"] == depth,
               f"tuning read back: {st} {r!r}")
-    st, r = api.call("POST", "/v1/s3/tuning", {"feeder_device_min_bytes": 1})
-    check(st == 400, f"tuning took a host-routing floor: {st} {r!r}")
+    floor = feeder.device_min_bytes
+    for v in (1 << 20, floor):
+        st, r = api.call("POST", "/v1/s3/tuning",
+                         {"feeder_device_min_bytes": v})
+        check(st == 200 and r["feeder_device_min_bytes"] == v
+              and feeder.device_min_bytes == v,
+              f"tuning feeder_device_min_bytes={v}: {st} {r!r}")
+        st, r = api.call("GET", "/v1/s3/tuning")
+        check(st == 200 and r["feeder_device_min_bytes"] == v,
+              f"routing floor read back: {st} {r!r}")
     return k["accessKeyId"], k["secretAccessKey"]
 
 
@@ -2250,6 +2425,17 @@ def main() -> int:
                                       rng, dev))
         launches = kernel_launches()
         b3_batches = dict(sorted(treehash.batch_sizes.items()))
+        # router phase: "auto" (its calibration included) and "off", then
+        # a host-only node, each counted from 0
+        t_router = time.perf_counter()
+        reset_launches()
+        router = asyncio.run(router_phase(
+            data, os.path.join(root, "router"), rng, dev, rates))
+        reset_launches()
+        host_node = asyncio.run(host_node_phase(
+            data, os.path.join(root, "host_node"), dev))
+        host_node_launches = kernel_launches()
+        router["phase_s"] = time.perf_counter() - t_router
         reset_launches()
         s3 = asyncio.run(s3_phase(data, os.path.join(root, "s3"), dev))
         s3_launches = kernel_launches()
@@ -2299,6 +2485,40 @@ def main() -> int:
     for name in ("gf_apply", "gf_check", "blake3_rows"):
         check(launches[name] > 0,
               f"kernel {name} was not launched on the block path")
+
+    ar, auto = router["auto_launches"], router["auto"]
+    print(f"router phase ({smi[0]}): {router['phase_s']:.2f} s in all; "
+          f"auto feeder on {dev} calibrated in "
+          f"{router['calibration_s']:.2f} s (4 x 1 MiB a leg), MB/s by "
+          f"op/route {json.dumps(router['calibration'])}; calibration "
+          f"launches {json.dumps(router['calibration_launches'])}")
+    print(f"router auto, {N_BLOCKS} x 1 MiB: PUT "
+          f"{gib / auto['put_s'] / 1e9:.3f} GB/s, degraded GET "
+          f"{gib / auto['get_s'] / 1e9:.3f} GB/s, scrub "
+          f"{N_BLOCKS / auto['scrub_s']:.1f} blocks/s, repair "
+          f"{gib / auto['repair_s'] / 1e9:.3f} GB/s; byte-equal to the "
+          f"require run and the oracles; items by op and route "
+          f"{json.dumps(router['auto_route'])}; MB/s at the end "
+          f"{json.dumps(router['rates_after'])}; launches (calibration "
+          f"included) {json.dumps(ar)}")
+    off = router["off"]
+    quarter = N_BLOCKS // 4 * BLOCK
+    print(f"router off, {N_BLOCKS // 4} x 1 MiB: PUT "
+          f"{quarter / off['put_s'] / 1e9:.3f} GB/s, degraded GET "
+          f"{quarter / off['get_s'] / 1e9:.3f} GB/s, scrub "
+          f"{N_BLOCKS // 4 / off['scrub_s']:.1f} blocks/s, repair "
+          f"{quarter / off['repair_s'] / 1e9:.3f} GB/s; byte-equal; "
+          f"launches {json.dumps(router['off_launches'])}; items by op "
+          f"{json.dumps(route_split(off['stats'], off['pipeline']))}")
+    print(f"[tpu] enable = false node (14 nodes, erasure(10,4), {dev}): "
+          f"signed PUT of {S3_OBJ_SIZE >> 20} MiB in {host_node['chunks']} "
+          f"chunks {host_node['put_s']:.2f} s, GET {host_node['get_s']:.2f} "
+          f"s, bytes and ETag equal; feeder modes {host_node['modes']}; "
+          f"launches {json.dumps(host_node_launches)}")
+    check(sum(host_node_launches.values()) == 0,
+          f"the host-only node launched kernels: {host_node_launches}")
+    check(router["auto_route"]["device_fallbacks"] == 0,
+          "device fallbacks in the router phase")
 
     b = s3["bytes"]
     print(f"S3 phase: 14-node erasure(10,4) port cluster booted in "
@@ -2350,7 +2570,8 @@ def main() -> int:
     check(s3["degraded_decodes"] > 0, "degraded GETs decoded nothing")
     print(f"admin HTTP API: key and bucket created, website access set, "
           f"feeder_inflight_batches set to 2 and read back, restored to 3, "
-          f"a host-routing floor refused; /metrics after the signed rounds "
+          f"the routing floor feeder_device_min_bytes set to 1 MiB, read "
+          f"back and restored; /metrics after the signed rounds "
           f"{json.dumps(s3['metrics'])} against the feeder's "
           f"{json.dumps(s3['metrics_snapshot'])}")
     print(f"web path launches: healthy {json.dumps(s3['web_launches'])}, "
@@ -2523,11 +2744,12 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": (launches[name] + s3_launches[name]
+            "launches": (launches[name] + ar[name] + s3_launches[name]
                          + dur_launches.get(name, 0) + grid_launches[name]
                          + gw["worker_launches"].get(name, 0)),
             "launches_by_path": {
-                "block": launches[name], "s3": s3_launches[name],
+                "block": launches[name], "router": ar[name],
+                "s3": s3_launches[name],
                 "durability": dur_launches.get(name, 0),
                 "grid": grid_launches[name],
                 "gateway": gw["worker_launches"].get(name, 0)},

@@ -10,22 +10,20 @@ to the same AdminRpcHandler ops the CLI drives, so both operator
 surfaces stay behavior-identical.
 
 What differs from the JAX package, all of it about the device feeder
-(block/feeder.py), which has no host route or calibration here:
-- /v1/s3/tuning keeps every S3, read-cache and cache-tier knob and
-  `feeder_inflight_batches` (the batches in flight through the staged
-  pipeline, applied from the next batch on). The host-routing floors
-  `feeder_device_min_*` are refused with a 400 that says why, and are
-  not in the GET state.
-- /metrics exports every feeder counter the port keeps, plus
+(block/feeder.py):
+- /v1/s3/tuning keeps every knob of the JAX package, within its ranges:
+  the S3, read-cache and cache-tier knobs, `feeder_inflight_batches`
+  (the batches in flight through the staged pipeline, applied from the
+  next batch on) and the routing floors `feeder_device_min_*`, which
+  the feeder's "auto" mode reads at every batch.
+- /metrics exports every feeder counter of the JAX package, plus
   `feeder_device_fallbacks` (always 0: a failed device group fails its
   requests), `feeder_mesh_batches` counts the batches split over the
-  device grid (parallel/mesh.py), and `feeder_kernel_launches{kernel}`
-  the launches of each hand-written kernel in this process (a gateway
-  worker's under its `worker` label). It leaves out
-  `feeder_throughput_mbps` (calibration), `feeder_inline_items` (the
-  host inline route) and `feeder_recompiles` (the kernels are built
-  once, not per launch shape), so no gauge reports an event the port
-  does not have.
+  device grid (parallel/mesh.py), `feeder_recompiles` the distinct
+  launch shapes (the kernels are built once; no shape compiles
+  anything), and `feeder_kernel_launches{kernel}` the launches of each
+  hand-written kernel in this process (a gateway worker's under its
+  `worker` label).
 """
 
 from __future__ import annotations
@@ -43,10 +41,6 @@ def _json(body, status: int = 200) -> Response:
 
 
 # ---- runtime-knob application ------------------------------------------
-# the JAX package's host/device routing floors: nothing to route here
-_HOST_ROUTE_KNOBS = ("feeder_device_min_bytes", "feeder_device_min_items",
-                     "feeder_device_min_decode_bytes",
-                     "feeder_device_min_decode_items")
 
 # Module-level so BOTH operator surfaces share one implementation: the
 # admin HTTP routes below, and the gateway worker RPC handler
@@ -74,16 +68,18 @@ def apply_s3_tuning(garage, spec: dict) -> dict:
               # on/off without a server restart (0 = disabled)
               "read_cache_max_bytes": (0, 1 << 40),
               "read_cache_probation_pct": (1, 90),
-              # device feeder ([tpu] inflight_batches, block/feeder.py):
-              # pipeline depth, live-tunable so bench sweeps walk the
-              # overlap/latency trade without a server restart
-              "feeder_inflight_batches": (1, 16)}
+              # device feeder ([tpu] knobs, block/feeder.py): pipeline
+              # depth and host/device routing floors, live-tunable so
+              # bench sweeps walk the overlap/latency trade without a
+              # server restart
+              "feeder_inflight_batches": (1, 16),
+              "feeder_device_min_bytes": (0, 1 << 40),
+              "feeder_device_min_items": (1, 4096),
+              # read-side routing floors (decode/repair)
+              "feeder_device_min_decode_bytes": (0, 1 << 40),
+              "feeder_device_min_decode_items": (1, 4096)}
     validated = {}
     for k, raw in spec.items():
-        if k in _HOST_ROUTE_KNOBS:
-            raise BadRequest(
-                f"{k}: the port's feeder has no host route, so it has no "
-                "host/device routing floor to tune")
         if k not in bounds:
             raise BadRequest(f"unknown s3 tuning knob {k!r}")
         if k.startswith("cache_tier") and tier is None:
@@ -130,6 +126,10 @@ def s3_tuning_state(garage) -> dict:
                                   None) is not None
                        else {"enabled": False}),
         "feeder_inflight_batches": feeder.inflight_batches,
+        "feeder_device_min_bytes": feeder.device_min_bytes,
+        "feeder_device_min_items": feeder.device_min_items,
+        "feeder_device_min_decode_bytes": feeder.device_min_decode_bytes,
+        "feeder_device_min_decode_items": feeder.device_min_decode_items,
         "feeder_pipeline": feeder.pipeline_stats(),
     }
 
@@ -1099,11 +1099,13 @@ class AdminHttpServer:
 
         out.extend(registry().render())
 
-        # device feeder + staged-pipeline observability (the counters
-        # the port keeps; see the module docstring). Names are
-        # registered literally (GL07-checkable, and `feeder` is in
-        # METRIC_NAME_RE).
+        # device feeder calibration + staged-pipeline observability
+        # (see the module docstring). Names are registered literally
+        # (GL07-checkable, and `feeder` is in METRIC_NAME_RE).
         feeder = g.block_manager.feeder
+        for opbe, mbps in feeder.perf_summary().items():
+            op, _, be = opbe.partition("/")
+            gauge("feeder_throughput_mbps", mbps, op=op, backend=be)
         fs = feeder.stats
         gauge("feeder_batches", fs["batches"],
               "Batches dispatched by the device feeder")
@@ -1113,9 +1115,12 @@ class AdminHttpServer:
               "Items that actually ran on the device path (the live "
               "device-engagement proof metric)")
         gauge("feeder_device_bytes", fs["device_bytes"])
+        gauge("feeder_inline_items", fs["inline_items"])
         gauge("feeder_max_batch", fs["max_batch"])
         gauge("feeder_pad_waste_bytes", fs["pad_waste_bytes"],
               "Zero-padding bytes added by fixed-shape bucket launches")
+        gauge("feeder_recompiles", fs["recompiles"],
+              "Distinct launch shapes seen")
         gauge("feeder_device_fallbacks", fs["device_fallbacks"],
               "Device groups re-run on the host (none ever is: a "
               "failed group fails its requests)")

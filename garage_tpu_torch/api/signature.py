@@ -1,6 +1,7 @@
 """AWS Signature V4 verification (ported from the JAX package's
-api/signature.py; it differs only in comments: the port's feeder has no
-host route, so every chunk this module hands it is hashed by S2).
+api/signature.py; it differs only in comments: a chunk this module hands
+the feeder is hashed by S2 in the feeder's "require" mode, and routed
+as in the JAX package in "auto" and "off").
 
 Ref parity: src/api/common/signature/ (payload.rs:35-576 header +
 presigned auth, streaming.rs aws-chunked per-chunk signatures). Verifies

@@ -36,12 +36,24 @@
   threads), and the h2d stage waits for its copies before it returns:
   a PUT task releases its ingest lease as soon as encode_put returns,
   and the next PUT overwrites that buffer. Overlap of stages on
-  separate streams is later work.
+  separate streams is later work. Every launch shape the backend has
+  not launched before adds one to the feeder's `recompiles` (the JAX
+  package counts XLA compiles there; the kernels here are built once,
+  so the count says how many distinct shapes the padding let through).
+
+- `StubDeviceBackend` (ported from the JAX package): a deterministic
+  device emulator (`[tpu] device_backend = "stub"` or
+  GARAGE_TPU_DEVICE_BACKEND=stub) that computes real results through
+  the feeder's host route and sleeps a modelled transfer / compute /
+  readback latency per stage, so pipeline overlap, the watchdog and
+  the routing are testable without a GPU. It launches no kernel.
 """
 
 from __future__ import annotations
 
 import contextlib
+import logging
+import os
 import queue
 import threading
 import time
@@ -50,6 +62,8 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+
+log = logging.getLogger("garage_tpu_torch.block.device_backend")
 
 STAGES = ("h2d", "compute", "d2h")
 
@@ -64,6 +78,17 @@ def bucket_items(n: int, buckets=PAD_BUCKETS) -> int:
         if b >= n:
             return int(b)
     return n
+
+
+def bucket_len(n: int, quantum: int = 1024) -> int:
+    """Next power of two >= n (minimum `quantum`): the JAX package's
+    shard-length bucket. The port's launches pad shard lengths only to
+    the vector width (`round_vec`); this stays for callers that want the
+    JAX package's shape ladder."""
+    b = quantum
+    while b < n:
+        b <<= 1
+    return b
 
 
 def verify_matches(digs: list, items: list) -> list[bool]:
@@ -237,7 +262,10 @@ class TorchDeviceBackend:
             or PAD_BUCKETS
         self.device = resolve_device(device)
         self.stats = stats if stats is not None else {"pad_waste_bytes": 0,
-                                                      "mesh_batches": 0}
+                                                      "mesh_batches": 0,
+                                                      "recompiles": 0}
+        # launch shapes seen so far (the `recompiles` count)
+        self._shapes: set = set()
         # the grid route: `grid` (parallel/mesh.py Grid) or, by default,
         # every visible CUDA device when there are several
         self.grid = grid if grid is not None else _default_grid(self.device)
@@ -271,6 +299,12 @@ class TorchDeviceBackend:
     @staticmethod
     def _numpy(t: torch.Tensor) -> np.ndarray:
         return t.cpu().numpy()
+
+    def _shape(self, *key) -> None:
+        """Count a launch shape the backend has not launched before."""
+        if key not in self._shapes:
+            self._shapes.add(key)
+            self.stats["recompiles"] = self.stats.get("recompiles", 0) + 1
 
     def _grid_for(self, n_items: int):
         """The grid for a batch of n_items, or None (one device)."""
@@ -450,12 +484,16 @@ class TorchDeviceBackend:
         with self._on_stream():
             if op in ("hash", "verify", "hash_md5"):
                 n, groups = inner
+                for _idxs, buf, _lens in groups:
+                    self._shape("hash", *buf.shape)
                 out = (n, [(idxs, treehash.hash_rows(buf, lens))
                            for idxs, buf, lens in groups])
             elif op == "sha256":
+                self._shape("sha256", *inner[0].shape)
                 out = sha256.hash_rows(*inner)
             elif op in ("encode", "encode_put"):
                 blocks, slens, batch_t, dev, grid = inner
+                self._shape("encode", *dev.shape, grid is not None)
                 if grid is not None:
                     parity = pmesh.make_encode_step(
                         grid, k, m, dev.shape[2])(dev)
@@ -465,6 +503,7 @@ class TorchDeviceBackend:
                 out = (blocks, slens, batch_t, parity)
             elif op == "parity_check":
                 n, dev, grid = inner
+                self._shape("parity_check", *dev.shape, grid is not None)
                 if grid is not None:
                     ok = pmesh.make_parity_check_step(
                         grid, k, m, dev.shape[2])(dev)
@@ -475,6 +514,10 @@ class TorchDeviceBackend:
             elif op in ("decode", "repair"):
                 out = []
                 for idxs, slens, mats, dev, grid in inner:
+                    # the erasure pattern rides in `mats` as data: the
+                    # shape is (items, output rows, k, shard length)
+                    self._shape("gf", *mats.shape, dev.shape[2],
+                                grid is not None)
                     if grid is not None:
                         res = pmesh.make_gf_apply_step(
                             grid, k, mats.shape[1], dev.shape[2])(mats, dev)
@@ -552,3 +595,108 @@ class TorchDeviceBackend:
                             for j, mi in enumerate(tuple(blobs[i][1]))}
             return results
         raise RuntimeError(f"unknown device op {op!r}")
+
+
+# ---------------------------------------------------------------------------
+# Stub backend: deterministic latency emulation over the host route
+# ---------------------------------------------------------------------------
+
+
+class StubDeviceBackend:
+    """Emulated device: real results (the feeder's host route), modelled
+    latency.
+
+    Each stage sleeps `fixed_s + bytes / (rate_gbps * 1e9)` with the
+    op's payload bytes (d2h uses the result-size estimate), so overlap
+    and watchdog behaviour are measurable and deterministic. Rates come
+    from the constructor or the GARAGE_TPU_STUB_GBPS env var
+    ("h2d,compute,d2h").
+
+    Test hook: setting `hang_stage` to one of ("h2d", "compute", "d2h")
+    makes the next entry into that stage block forever: the injected
+    mid-pipeline device hang the watchdog tests use.
+    """
+
+    name = "stub"
+
+    def __init__(self, feeder=None, h2d_gbps: float = 1.0,
+                 compute_gbps: float = 8.0, d2h_gbps: float = 1.0,
+                 fixed_s: float = 0.0):
+        env = os.environ.get("GARAGE_TPU_STUB_GBPS")
+        if env:
+            try:
+                parts = [float(x) for x in env.split(",")]
+                # pad a short list with the remaining positional
+                # defaults ("1,2" keeps d2h's default, not compute's)
+                defaults = [h2d_gbps, compute_gbps, d2h_gbps]
+                h2d_gbps, compute_gbps, d2h_gbps = (
+                    parts + defaults[len(parts):])[:3]
+            except ValueError:
+                log.warning("bad GARAGE_TPU_STUB_GBPS %r; using defaults",
+                            env)
+        self.feeder = feeder
+        self.rates = {"h2d": h2d_gbps, "compute": compute_gbps,
+                      "d2h": d2h_gbps}
+        self.fixed_s = float(fixed_s)
+        self.hang_stage: str | None = None
+
+    def _maybe_hang(self, stage: str) -> None:
+        if self.hang_stage == stage:
+            self.hang_stage = None  # one hang; siblings abort via event
+            log.warning("stub backend: injected hang in %s stage", stage)
+            threading.Event().wait()  # daemon thread, abandoned forever
+
+    def _sleep(self, stage: str, nbytes: int) -> None:
+        time.sleep(self.fixed_s + nbytes / (self.rates[stage] * 1e9))
+
+    def stage(self, op: str, blobs: list):
+        self._maybe_hang("h2d")
+        nbytes = group_bytes(op, blobs)
+        self._sleep("h2d", nbytes)
+        return (op, blobs, nbytes)
+
+    def compute(self, op: str, staged):
+        self._maybe_hang("compute")
+        op, blobs, nbytes = staged
+        self._sleep("compute", nbytes)
+        f = self.feeder
+        if op in ("hash", "verify", "hash_md5"):
+            datas = blobs if op == "hash" else [d for _, d in blobs]
+            res = f._do_hash(list(datas), "host")
+        elif op == "sha256":
+            res = f._do_sha256(list(blobs), "host")
+        elif op == "encode":
+            res = f._do_encode(list(blobs), "host")
+        elif op == "encode_put":
+            res = f._do_encode_put(list(blobs), "host")
+        elif op == "parity_check":
+            res = f._do_parity_check(list(blobs), "host")
+        elif op == "decode":
+            res = f._do_decode(list(blobs), "host")
+        elif op == "repair":
+            res = f._do_repair(list(blobs), "host")
+        else:
+            raise RuntimeError(f"unknown device op {op!r}")
+        return (op, blobs, res)
+
+    def readback(self, op: str, handle) -> list:
+        self._maybe_hang("d2h")
+        op, blobs, res = handle
+        if op in ("hash", "verify", "hash_md5", "sha256"):
+            out_bytes = 32 * len(res)
+        elif op in ("encode", "encode_put"):
+            out_bytes = sum(len(b) for parts in res for b in parts)
+        elif op == "decode":
+            out_bytes = sum(len(b) for b in res)
+        elif op == "repair":
+            out_bytes = sum(len(b) for d in res for b in d.values())
+        else:
+            out_bytes = len(res)
+        self._sleep("d2h", out_bytes)
+        if op == "verify":
+            return verify_matches(res, blobs)
+        if op == "hash_md5":
+            from .. import native
+
+            native.md5_update_many(list(blobs))
+        return res

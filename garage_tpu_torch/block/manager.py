@@ -9,12 +9,14 @@ erasure(k, m) RS-encodes the packed block into k+m shards (kernel G1
 on the GPU) placed on k+m distinct ring nodes, and reads gather any k.
 
 What differs from the JAX package: the manager takes a torch `device`
-("cuda" unless the caller asks for "cpu") in place of the feeder mode,
-and hands it to its codec and its DeviceFeeder (with the `[tpu]`
-knobs, `tpu_cfg`, that the feeder honours); the
-shard file format adds `pack_shards` (all shards of a block framed in
-one buffer, byte-identical to `pack_shard`), which the feeder's
-encode_put readback uses.
+("cuda" unless the caller asks for "cpu") beside the feeder mode
+`device_mode` ("require" by default, where the JAX package's is
+"auto"; "auto" and "off" as there), and hands both to its DeviceFeeder
+(with the `[tpu]` knobs, `tpu_cfg`) and the device to its codec — the
+CPU in "off", where nothing touches the card; the shard file format
+adds `pack_shards` (all shards of a block framed in one buffer,
+byte-identical to `pack_shard`), which the feeder's encode_put readback
+uses.
 
 Local files (under the DataLayout path scheme):
   whole blocks:  {hex}[.zst|.zlib] content = DataBlock payload
@@ -210,6 +212,7 @@ class BlockManager:
                  codec: Optional[BlockCodec] = None,
                  compression: bool = True, fsync: bool = False,
                  device="cuda",
+                 device_mode: str = "require",
                  device_batch_blocks: int = 256,
                  tpu_cfg=None,
                  ram_buffer_max: int = 256 * 1024 * 1024,
@@ -230,9 +233,9 @@ class BlockManager:
         if codec is None:
             rm = system.replication
             if rm.erasure is not None:
-                codec = ErasureCodec(*rm.erasure,
-                                     write_quorum=rm.block_write_quorum,
-                                     device=device)
+                codec = ErasureCodec(
+                    *rm.erasure, write_quorum=rm.block_write_quorum,
+                    device="cpu" if device_mode == "off" else device)
             else:
                 codec = ReplicateCodec(rm.factor,
                                        write_quorum=rm.write_quorum)
@@ -241,6 +244,7 @@ class BlockManager:
 
         self.feeder = DeviceFeeder(
             codec=codec if isinstance(codec, ErasureCodec) else None,
+            mode=device_mode,
             max_batch=device_batch_blocks,
             device=device,
             tpu_cfg=tpu_cfg,

@@ -14,9 +14,11 @@ N worker processes (gateway/) serve S3, K2V and web on the same ports,
 each on the store's `--device`.
 
 What differs from the JAX package: `--device`, which the gateway
-workers inherit, and `[tpu] enable = false`, which stops at startup
-unless `--device cpu` is given (model/garage.py check_tpu_section).
-The operator CLI (cli/main.py) reaches the node over RPC as before.
+workers inherit; a node with `[tpu] enable = true` (the feeder's
+"require") stops at startup when that device cannot be reached, and
+one with `enable = false` runs host-only, as in the JAX package, and
+needs no device at all. The operator CLI (cli/main.py) reaches the
+node over RPC as before.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ import signal
 
 from ..admin.rpc import AdminRpcHandler
 from ..api.s3.api_server import S3ApiServer
-from ..model.garage import Garage, check_tpu_section, parse_addr
+from ..model.garage import Garage, parse_addr
 from ..utils.config import read_config
 
 log = logging.getLogger("garage_tpu_torch.server")
@@ -43,8 +45,8 @@ async def run_server(cfg_path: str, device="cuda") -> None:
     from .. import resolve_device
 
     try:
-        check_tpu_section(cfg.tpu, device)
-        resolve_device(device)  # no CUDA device: fail before booting
+        if cfg.tpu.enable:
+            resolve_device(device)  # no CUDA device: fail before booting
     except (ValueError, RuntimeError) as e:
         raise SystemExit(f"garage_tpu_torch server: {e}") from None
     from ..utils import lockfile

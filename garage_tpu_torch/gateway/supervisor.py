@@ -28,7 +28,8 @@ and exec, never a bare fork, whose child could not use a CUDA context
 the store holds) with its own CUDA context and feeder on the card.
 Before it starts them, a CUDA supervisor builds every kernel library
 once (`ops._build.build_all`), so that N workers do not each run the
-same nvcc jobs at their first launch.
+same nvcc jobs at their first launch; a `[tpu] enable = false` node
+(host-only) builds none.
 """
 
 from __future__ import annotations
@@ -142,7 +143,8 @@ class GatewaySupervisor:
                     "[gateway] workers > 1 requires TCP frontend binds "
                     "(SO_REUSEPORT does not apply to unix sockets): "
                     f"{bind}")
-        if torch.device(self.device).type == "cuda":
+        if torch.device(self.device).type == "cuda" \
+                and self.garage.config.tpu.enable:
             # one build for every worker, off the loop
             from ..ops import _build
 

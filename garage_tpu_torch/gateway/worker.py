@@ -33,7 +33,9 @@ What differs from the JAX package: the worker's block math runs on the
 torch device given by `--device` (the store node's: "cuda" unless
 "cpu"), through its own DeviceFeeder; a worker whose device cannot be
 reached fails its boot before it says hello, so the supervisor reports
-it not ready and nothing serves on the CPU in its place. Several workers
+it not ready and nothing serves on the CPU in its place. A worker of a
+`[tpu] enable = false` node runs its feeder host-only ("off"), as the
+JAX package's does, and reaches no device. Several workers
 on one card each hold their own CUDA context; the card time-slices
 their kernels (no MPS daemon is started here). A worker's node key and
 lockfile live under its own metadata dir; the lockfile is an flock the
@@ -386,8 +388,9 @@ async def run_worker(cfg_path: str, index: int, workers: int,
     from ..utils.runtime import tune
 
     tune()
-    await asyncio.to_thread(_boot_device, device)
     cfg = await asyncio.to_thread(read_config, cfg_path)
+    if cfg.tpu.enable:  # `enable = false`: host-only, no device to reach
+        await asyncio.to_thread(_boot_device, device)
     from ..model.garage import parse_peer
 
     store_addr, store_id = parse_peer(store)

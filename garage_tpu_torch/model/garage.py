@@ -3,13 +3,14 @@
 
 What differs from the JAX package: Garage takes a torch `device`
 ("cuda" unless the caller asks for "cpu") and hands it to the
-BlockManager in place of the feeder mode. The config file format is the
-JAX package's, so one garage.toml serves both packages. Of `[tpu]`, the
-feeder honours `batch_blocks`, `inflight_batches`, `batch_timeout_s`,
-`batch_linger_ms`, `pad_buckets` and `mesh_min_items`; `enable = false`
-(the JAX package's host-only node) is refused unless the device is the
-CPU; the routing floors, trials and platform keys have no meaning on the
-port and are named in one warning when set (`check_tpu_section`).
+BlockManager. The config file format is the JAX package's, so one
+garage.toml serves both packages. `[tpu] enable = false` builds the
+host-only node (feeder mode "off") on any device, as in the JAX package;
+`enable = true` gives feeder mode "require", where the JAX package's is
+"auto" (block/feeder.py says why). The feeder honours every other
+`[tpu]` key but `platform` (a JAX platform pin), which is named in one
+warning when set (`check_tpu_section`); the routing floors, trial caps
+and `device_backend` act in "auto" as there.
 
 Ref parity: src/model/garage.rs:37-334. Opens the db, builds the
 System/NetApp, the BlockManager, and all tables with their replication
@@ -30,8 +31,6 @@ import dataclasses
 import logging
 import os
 from typing import Optional
-
-import torch
 
 from ..block.layout import DataDir as LayoutDataDir
 from ..block.layout import DataLayout
@@ -66,24 +65,19 @@ def parse_addr(s: str) -> tuple[str, int]:
     return (host.strip("[]"), int(port))
 
 
-# [tpu] keys the port acts on; every other key of TpuConfig (the host
-# routing floors, calibration trials, platform and backend selection)
-# has no counterpart on a CUDA node
+# [tpu] keys the port acts on: all of TpuConfig but `platform`, a JAX
+# platform pin with no counterpart on a CUDA node
 _TPU_HONOURED = ("enable", "batch_blocks", "inflight_batches",
-                "batch_timeout_s", "batch_linger_ms", "pad_buckets",
-                "mesh_min_items")
+                 "device_min_bytes", "device_min_items",
+                 "device_min_decode_bytes", "device_min_decode_items",
+                 "trial_max_items", "trial_items_cap", "trial_max_bytes",
+                 "pad_buckets", "mesh_min_items", "device_backend",
+                 "batch_timeout_s", "batch_linger_ms")
 
 
-def check_tpu_section(tpu: TpuConfig, device) -> list[str]:
-    """Refuse `[tpu] enable = false` on a device other than the CPU (the
-    JAX package runs such a node host-only; the port has no host route
-    and never moves to the CPU by itself) and return the keys set to a
-    non-default value that the port ignores."""
-    if not tpu.enable and torch.device(device).type != "cpu":
-        raise ValueError(
-            "[tpu] enable = false asks for a host-only node, which the "
-            "port does not have: its block math runs on the device; "
-            "pass --device cpu (device=\"cpu\") to run it on the CPU")
+def check_tpu_section(tpu: TpuConfig) -> list[str]:
+    """The `[tpu]` keys set to a non-default value that the port
+    ignores."""
     default = TpuConfig()
     return sorted(f.name for f in dataclasses.fields(TpuConfig)
                   if f.name not in _TPU_HONOURED
@@ -103,7 +97,7 @@ class Garage:
                  status_interval: Optional[float] = None,
                  ping_interval: Optional[float] = None,
                  device="cuda"):
-        ignored = check_tpu_section(config.tpu, device)
+        ignored = check_tpu_section(config.tpu)
         if ignored:
             log.warning("[tpu] keys with no meaning on the port, ignored: "
                         "%s", ", ".join(ignored))
@@ -177,6 +171,7 @@ class Garage:
             compression=config.compression_level is not None,
             fsync=config.data_fsync,
             device=device,
+            device_mode="require" if config.tpu.enable else "off",
             device_batch_blocks=config.tpu.batch_blocks,
             tpu_cfg=config.tpu,
             ram_buffer_max=config.block_ram_buffer_max,

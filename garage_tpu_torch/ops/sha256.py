@@ -30,8 +30,11 @@ instead (about 0.3 s for 64 KiB): still the same FIPS 180-4 function,
 computed here, never hashlib or `native/`. A CUDA tensor given to the
 plain version always takes the tensor formulation.
 
-The host halves (n_blocks_for, part_len, pad_row_into, digests_to_hex,
-sha256_hex_py) are copies of the JAX package's.
+`sha256_hex_many(blobs, device)` is the synchronous batched entry point
+(the JAX package's of the same name): buffers or span lists in, hex
+digests out, one S2 launch on a CUDA device, the plain version on the
+CPU. The host halves (n_blocks_for, part_len, pad_row_into,
+digests_to_hex, sha256_hex_py) are copies of the JAX package's.
 """
 
 from __future__ import annotations
@@ -115,6 +118,25 @@ def digests_to_hex(cvs) -> list[str]:
     arr = np.ascontiguousarray(np.asarray(cvs).astype(">u4"))
     rows = arr.view(np.uint8).reshape(arr.shape[0], 32)
     return [rows[i].tobytes().hex() for i in range(rows.shape[0])]
+
+
+def sha256_hex_many(blobs: list, device="cuda") -> list[str]:
+    """Hex SHA-256 of every message in `blobs` (each a buffer or a span
+    list hashed as one): one padded (B, W) group, W the longest
+    message's padded length, hashed by `hash_rows` on `device`."""
+    from .. import resolve_device
+
+    if not blobs:
+        return []
+    dev = resolve_device(device)
+    lens = [part_len(d) for d in blobs]
+    nbs = np.array([n_blocks_for(n) for n in lens], dtype=np.int32)
+    buf = np.zeros((len(blobs), int(nbs.max()) * BLOCK), dtype=np.uint8)
+    for row, d in enumerate(blobs):
+        pad_row_into(buf[row], d)
+    out = hash_rows(torch.from_numpy(buf).to(dev),
+                    torch.from_numpy(nbs).to(dev))
+    return [row.tobytes().hex() for row in out.cpu().numpy()]
 
 
 def sha256_hex_py(data) -> str:

@@ -18,6 +18,10 @@ exactly C chunks (pad rows are full-length zero messages). Torch on the
 CPU has no shifts or adds on uint32 and int32 shifts are arithmetic, so
 the plain version works in int64 masked to 32 bits.
 
+`blake3_many(blobs, device)` is the synchronous batched entry point (the
+JAX package's of the same name): one `hash_rows` launch per chunk-count
+group on `device`.
+
 The pure-Python implementation (blake3_py, copied from the JAX package)
 is the test oracle and the host fallback for small inputs.
 """
@@ -28,6 +32,7 @@ import ctypes
 import functools
 import threading
 
+import numpy as np
 import torch
 
 from . import _build
@@ -349,3 +354,27 @@ def chain_cycles(device: torch.device) -> float:
 
 def n_chunks_for(length: int) -> int:
     return max(1, (length + CHUNK_LEN - 1) // CHUNK_LEN)
+
+
+def blake3_many(blobs: list, device="cuda") -> list[bytes]:
+    """BLAKE3-256 of many byte strings: same-chunk-count groups hashed by
+    one `hash_rows` call each on `device`."""
+    from .. import resolve_device
+
+    dev = resolve_device(device)
+    out: list = [None] * len(blobs)
+    groups: dict[int, list[int]] = {}
+    for i, blob in enumerate(blobs):
+        groups.setdefault(n_chunks_for(len(blob)), []).append(i)
+    for c, idxs in groups.items():
+        buf = np.zeros((len(idxs), c * CHUNK_LEN), dtype=np.uint8)
+        lengths = np.empty(len(idxs), dtype=np.int32)
+        for row, i in enumerate(idxs):
+            arr = np.frombuffer(blobs[i], dtype=np.uint8)
+            buf[row, :arr.size] = arr
+            lengths[row] = arr.size
+        digests = hash_rows(torch.from_numpy(buf).to(dev),
+                            torch.from_numpy(lengths).to(dev)).cpu().numpy()
+        for row, i in enumerate(idxs):
+            out[i] = digests[row].tobytes()
+    return out

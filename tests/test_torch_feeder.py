@@ -382,10 +382,17 @@ def test_failed_group_fails_only_its_own_requests():
 
 
 @pytest.mark.parametrize("mode", ["auto", "off"])
-def test_host_modes_are_rejected(mode):
-    """The JAX feeder's host-routing modes do not exist in the port."""
+def test_host_modes_are_rejected(mode, monkeypatch):
+    """The JAX feeder's host-routing modes run only when asked for by
+    name: a feeder built without a mode is "require", whatever
+    GARAGE_TPU_DEVICE says, and a misspelt host mode is rejected."""
+    monkeypatch.delenv("GARAGE_TPU_DEVICE", raising=False)
+    assert DeviceFeeder(mode=mode, device="cpu").mode == mode
+    for env in ("off", "require"):
+        monkeypatch.setenv("GARAGE_TPU_DEVICE", env)
+        assert DeviceFeeder(device="cpu").mode == "require"
     with pytest.raises(ValueError, match="require"):
-        DeviceFeeder(mode=mode, device="cpu")
+        DeviceFeeder(mode=mode.upper(), device="cpu")
 
 
 def test_unknown_mode_is_rejected():

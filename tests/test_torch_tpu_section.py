@@ -3,10 +3,11 @@ something on CUDA: a port `Garage` built from a config reads
 `batch_blocks`, `inflight_batches`, `batch_timeout_s`, `batch_linger_ms`,
 `pad_buckets` and `mesh_min_items` into its feeder exactly as the JAX package's `Garage`
 built from the same file does, and its batches never exceed
-`batch_blocks`. `enable = false` is refused unless the device is the
-CPU; the keys with no meaning on the port are named in one warning.
-The admin API's /v1/s3/tuning sets `inflight_batches` at run time and
-refuses the JAX package's host-routing floors."""
+`batch_blocks`. `enable = false` builds the host-only node (feeder mode
+"off") on any device; `platform`, the one key with no meaning on the
+port, is named in one warning. The admin API's /v1/s3/tuning sets
+`inflight_batches` and the routing floors at run time, within the JAX
+package's ranges."""
 
 from __future__ import annotations
 
@@ -147,17 +148,32 @@ def test_inflight_batches_bounds_the_pipeline(tmp_path, depth):
 
 
 def test_tuning_refuses_the_host_routing_floors(tmp_path):
+    """The routing floors are tuned as in the JAX package: set, read
+    back, held to its ranges; a refused update changes nothing."""
     g = Garage(_config(tmp_path, ""), device="cpu")
+    feeder = g.block_manager.feeder
     state = s3_tuning_state(g)
     assert state["feeder_inflight_batches"] == 3
-    assert not [k for k in state if k.startswith("feeder_device_min")]
-    for knob in ("feeder_device_min_bytes", "feeder_device_min_items",
-                 "feeder_device_min_decode_bytes",
-                 "feeder_device_min_decode_items"):
-        with pytest.raises(BadRequest, match="no host route"):
-            apply_s3_tuning(g, {"feeder_inflight_batches": 2, knob: 1})
+    assert state["feeder_device_min_bytes"] == 4 << 20
+    assert state["feeder_device_min_decode_items"] == 4
+    state = apply_s3_tuning(g, {"feeder_inflight_batches": 2,
+                                "feeder_device_min_bytes": 1 << 20,
+                                "feeder_device_min_items": 7,
+                                "feeder_device_min_decode_bytes": 0,
+                                "feeder_device_min_decode_items": 4096})
+    assert (feeder.device_min_bytes, feeder.device_min_items,
+            feeder.device_min_decode_bytes,
+            feeder.device_min_decode_items) == (1 << 20, 7, 0, 4096)
+    assert state["feeder_device_min_items"] == 7
+    for knob, bad in (("feeder_device_min_bytes", -1),
+                      ("feeder_device_min_items", 0),
+                      ("feeder_device_min_decode_bytes", (1 << 40) + 1),
+                      ("feeder_device_min_decode_items", 4097)):
+        with pytest.raises(BadRequest, match=knob):
+            apply_s3_tuning(g, {"feeder_inflight_batches": 3, knob: bad})
     # validate-then-apply: the refused update changed nothing
-    assert g.block_manager.feeder.inflight_batches == 3
+    assert feeder.inflight_batches == 2
+    assert feeder.device_min_items == 7
     with pytest.raises(BadRequest):
         apply_s3_tuning(g, {"feeder_inflight_batches": 17})
 
@@ -175,26 +191,31 @@ def test_pad_buckets_shape_the_launches(tmp_path):
 
 
 def test_enable_false_needs_the_cpu(tmp_path):
-    """`enable = false` (the JAX package's host-only node) stops a port
-    node on CUDA with an error that names the key; on the CPU it runs."""
+    """`enable = false` (the JAX package's host-only node) builds a port
+    node whose feeder runs "off" on any device, its codec on the CPU;
+    `enable = true` keeps "require"."""
     cfg = _config(tmp_path, "enable = false\n")
-    with pytest.raises(ValueError, match=r"\[tpu\] enable = false"):
-        Garage(cfg, device="cuda")
-    with pytest.raises(ValueError, match=r"\[tpu\] enable = false"):
-        check_tpu_section(cfg.tpu, "cuda:0")
-    assert not os.path.exists(tmp_path / "meta")
-    Garage(cfg, device="cpu")
+    for device in ("cuda", "cpu"):
+        g = Garage(cfg, device=device)
+        assert g.block_manager.feeder.mode == "off"
+    assert check_tpu_section(cfg.tpu) == []
+    (tmp_path / "on").mkdir()
+    on = Garage(_config(tmp_path / "on", ""), device="cpu")
+    assert on.block_manager.feeder.mode == "require"
 
 
 def test_keys_without_meaning_are_named_once(tmp_path, caplog):
     cfg = _config(tmp_path, _KNOBS + "device_min_bytes = 1\n"
-                  "device_min_items = 2\ntrial_max_items = 1\n")
-    assert check_tpu_section(cfg.tpu, "cpu") == [
-        "device_min_bytes", "device_min_items", "trial_max_items"]
+                  "device_min_items = 2\ntrial_max_items = 1\n"
+                  'platform = "cpu"\n')
+    assert check_tpu_section(cfg.tpu) == ["platform"]
     with caplog.at_level(logging.WARNING, "garage_tpu_torch.model"):
-        Garage(cfg, device="cpu")
+        g = Garage(cfg, device="cpu")
     warned = [r.getMessage() for r in caplog.records
               if "[tpu]" in r.getMessage()]
     assert len(warned) == 1
-    assert "device_min_bytes, device_min_items, trial_max_items" in warned[0]
-    assert check_tpu_section(_config(tmp_path, _KNOBS).tpu, "cpu") == []
+    assert warned[0].endswith(": platform")
+    feeder = g.block_manager.feeder
+    assert (feeder.device_min_bytes, feeder.device_min_items,
+            feeder.trial_max_items) == (1, 2, 1)
+    assert check_tpu_section(_config(tmp_path, _KNOBS).tpu) == []
