@@ -29,6 +29,7 @@ from .. import resolve_device
 from ..ops import rs
 from ..utils.data import content_hash_matches
 from ..utils.error import MissingBlock
+from .device_backend import bucket_items, round_vec
 
 
 class BlockCodec:
@@ -86,13 +87,16 @@ class ErasureCodec(BlockCodec):
         return self.encode_batch([data])[0]
 
     def encode_batch(self, blocks: list[bytes]) -> list[list[bytes]]:
-        """Encode many blocks in one device launch (padded to the
-        longest; each part keeps its block's true shard length)."""
+        """Encode many blocks in one device launch, shaped as the staged
+        backend shapes its launches (items up the bucket ladder, shard
+        length to the vector width); each part keeps its block's true
+        shard length."""
         if not blocks:
             return []
         slens = [rs.shard_len(len(b), self.k) for b in blocks]
-        smax = max(slens)
-        batch = np.zeros((len(blocks), self.k, smax), dtype=np.uint8)
+        bpad = bucket_items(len(blocks))
+        batch = np.zeros((bpad, self.k, round_vec(max(slens))),
+                         dtype=np.uint8)
         for i, b in enumerate(blocks):
             sh = rs.split_stripe(b, self.k)
             batch[i, :, : sh.shape[1]] = sh

@@ -383,6 +383,7 @@ class TorchDeviceBackend:
             buf[row, lens[row]:int(nbs[row]) * sha.BLOCK] = 0
             sha.pad_row_into(buf[row], d)
         self.stats["pad_waste_bytes"] += buf.size - sum(lens)
+        # lint: ignore[GL15] S2 is one build for every shape and plans nothing per shape (no plan cache, no graph); the width follows the longest message by design, so a row bucket would close no shape set
         return (self._to_device(buf_t),
                 self._to_device(torch.from_numpy(nbs)))
 

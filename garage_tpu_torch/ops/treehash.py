@@ -292,6 +292,7 @@ def _tickets_for(b: int, device: torch.device, stream) -> torch.Tensor:
     with _tickets_lock:
         t = _tickets.get(key)
         if t is None or t.numel() < b:
+            # lint: ignore[GL15] the stream's ticket counters, grown only and reused by every launch on it: B3 reads the first b, so their size is no launch shape
             t = torch.zeros(max(b, 256), dtype=torch.int32, device=device)
             _tickets[key] = t
         return t
@@ -358,8 +359,10 @@ def n_chunks_for(length: int) -> int:
 
 def blake3_many(blobs: list, device="cuda") -> list[bytes]:
     """BLAKE3-256 of many byte strings: same-chunk-count groups hashed by
-    one `hash_rows` call each on `device`."""
+    one `hash_rows` call each on `device`, their rows padded up the
+    feeder's bucket ladder (pad rows are full-length zero messages)."""
     from .. import resolve_device
+    from ..block.device_backend import bucket_items
 
     dev = resolve_device(device)
     out: list = [None] * len(blobs)
@@ -367,8 +370,9 @@ def blake3_many(blobs: list, device="cuda") -> list[bytes]:
     for i, blob in enumerate(blobs):
         groups.setdefault(n_chunks_for(len(blob)), []).append(i)
     for c, idxs in groups.items():
-        buf = np.zeros((len(idxs), c * CHUNK_LEN), dtype=np.uint8)
-        lengths = np.empty(len(idxs), dtype=np.int32)
+        b = bucket_items(len(idxs))
+        buf = np.zeros((b, c * CHUNK_LEN), dtype=np.uint8)
+        lengths = np.full(b, c * CHUNK_LEN, dtype=np.int32)
         for row, i in enumerate(idxs):
             arr = np.frombuffer(blobs[i], dtype=np.uint8)
             buf[row, :arr.size] = arr

@@ -6,9 +6,7 @@ The reference file, and the block-cluster helpers it takes from
 tests/test_block.py, are read as text and executed here with the import
 and sibling-helper rewrite of tests/test_torch_copies.py
 (`load_reference_suite`); neither is imported or changed. Its GL03 lint
-tests, which check the JAX package's own paths with garage_tpu.analysis
-(host tooling the port reuses as it is), are in
-test_torch_copies.NOT_RUN.
+tests run against the port's analyzer (garage_tpu_torch.analysis).
 """
 
 from test_torch_copies import load_reference_suite

@@ -43,6 +43,8 @@ PORTED = {
     "model/garage.py", "api/signature.py", "api/s3/put.py", "cli/server.py",
     "gateway/supervisor.py", "gateway/worker.py",
     "parallel/__init__.py", "parallel/mesh.py",
+    "analysis/__main__.py", "analysis/core.py", "analysis/rules_device.py",
+    "analysis/rules_project.py",
 }
 
 _REWRITE = re.compile(r"\bgarage_tpu(?=\.[A-Za-z_])")
@@ -50,9 +52,11 @@ _REWRITE = re.compile(r"\bgarage_tpu(?=\.[A-Za-z_])")
 # the package: it becomes the port's module of that name
 _FROM_PACKAGE = re.compile(r"^(\s*)from garage_tpu import ", re.M)
 _TAG = r"(?:ISSUE|PR) \d+"
-# in order: "(TAG, x" -> "(x", "x, TAG)" -> "x)", " (TAG)" and "(TAG): "
+# in order: "x, TAG)" broken over two lines -> "x)" with the line break
+# kept, "(TAG, x" -> "(x", "x, TAG)" -> "x)", " (TAG)" and "(TAG): "
 # -> gone, "(TAG x" -> "(x", any other TAG -> "an earlier change"
 _TAGS = (
+    (re.compile(r"[,;] (?:ISSUE|PR)\n(\s*)\d+\)"), r")\n\1"),
     (re.compile(r"\(" + _TAG + r"[,;] ?"), "("),
     (re.compile(r"[,;] " + _TAG + r"\)"), ")"),
     (re.compile(r"(?<=\S) \(" + _TAG + r"\)"), ""),
@@ -119,15 +123,24 @@ _HELPER_IMPORT = re.compile(
     re.M)
 _BARE_IMPORT = re.compile(r"^\s*(from garage_tpu import|import garage_tpu\b)",
                           re.M)
+# a path of the JAX package's tree in a string literal ("garage_tpu/...",
+# f"garage_tpu/...", "garage_tpu"): with `paths=True` it names the port's
+_TREE_PATH = re.compile(r'(?<=")garage_tpu(?=[/"])')
 
 
-def _port_text(name: str, edits=(), n_entry_points: int = 0) -> str:
-    """tests/<name>.py with copy_text's import rewrite, its sibling
-    helper imports pointed at the port's helpers (loaded here first),
-    its entry-point commands run as the port's modules, then HELPERS'
-    edits for <name> and `edits`, each of which must match once."""
+def _port_text(name: str, edits=(), n_entry_points: int = 0,
+               paths: bool = False) -> str:
+    """tests/<name>.py with copy_text's import rewrite (and, with
+    `paths`, its string paths of the JAX package's tree pointed at the
+    port's), its sibling helper imports pointed at the port's helpers
+    (loaded here first), its entry-point commands run as the port's
+    modules, then HELPERS' edits for <name> and `edits`, each of which
+    must match once."""
     with open(os.path.join(REPO, "tests", name + ".py")) as f:
         text = _REWRITE.sub("garage_tpu_torch", f.read())
+    if paths:
+        text, n = _TREE_PATH.subn("garage_tpu_torch", text)
+        assert n, f"{name}.py names no path of the JAX package's tree"
     text = _FROM_PACKAGE.sub(r"\1from garage_tpu_torch import ", text)
     text, n = _RUN_MODULE.subn(
         lambda m: ('[sys.executable, "-c", '
@@ -188,7 +201,8 @@ def _defined_tests(text: str) -> set[str]:
 
 def load_reference_suite(name: str, namespace: dict, edits=(),
                          n_entry_points: int = 0,
-                         not_run: dict | None = None) -> None:
+                         not_run: dict | None = None,
+                         paths: bool = False) -> None:
     """Execute the JAX package's tests/<name>.py into `namespace` (a test
     module's globals), so that pytest collects its tests and fixtures
     there, against the port. The text gets copy_text's import rewrite;
@@ -199,7 +213,10 @@ def load_reference_suite(name: str, namespace: dict, edits=(),
     new, n) edit); its `from <helper> import` / `import <helper>` lines
     for a sibling file of HELPERS take the port's version of that file
     (`_port_<helper>`); and `import bench` takes PORT_BENCH, the bench
-    module's `_build_cluster` on port nodes. `not_run` ({test name:
+    module's `_build_cluster` on port nodes. With `paths`, every string
+    literal that names the JAX package's tree ("garage_tpu/...",
+    "garage_tpu") names the port's instead, so that a lint suite's
+    fixtures and tree scans lint the port. `not_run` ({test name:
     reason}, NOT_RUN[name] by default) names the reference tests that are
     not collected: each must be a test of the reference file, with a
     reason. The reference files themselves are never imported or
@@ -211,7 +228,7 @@ def load_reference_suite(name: str, namespace: dict, edits=(),
     for test, reason in not_run.items():
         assert test in defined, f"{name}.py has no test {test!r}"
         assert reason.strip(), f"{name}::{test}: no reason given"
-    text = _port_text(name, edits, n_entry_points)
+    text = _port_text(name, edits, n_entry_points, paths)
     doc = namespace.get("__doc__")
     namespace["PORT_MAIN"] = PORT_MAIN
     namespace["PORT_BENCH"] = PORT_BENCH
@@ -228,8 +245,6 @@ def load_reference_suite(name: str, namespace: dict, edits=(),
 # which holds the port's behaviour instead.
 _NO_FALLBACK = ("asserts a host re-run of a failed or hung device group; "
                 "the port fails the group's requests instead")
-_GL03 = ("lints the JAX package's paths with garage_tpu.analysis, which "
-         "the port reuses as it is")
 NOT_RUN = {
     "test_feeder_pipeline": {
         "test_pipeline_hang_reruns_all_inflight_host_side": _NO_FALLBACK,
@@ -259,15 +274,6 @@ NOT_RUN = {
         "test_feeder_sha256_host_floor_when_alone":
             "asserts a lone stream's chunk digest on the host in "
             "\"require\"; the port keeps it on kernel S2 there",
-    },
-    "test_cache_tier": {
-        "test_gl03_fires_on_tier_probe_in_ssec_scope": _GL03,
-        "test_gl03_quiet_with_cacheable_on_tier_probe": _GL03,
-        "test_gl03_fires_on_tainted_payload_into_tier_insert": _GL03,
-        "test_gl03_quiet_on_untainted_tier_insert": _GL03,
-        "test_gl03_fires_on_probe_full_and_probe_packed_in_ssec_scope":
-            _GL03,
-        "test_gl03_quiet_with_cacheable_on_probe_full": _GL03,
     },
 }
 

@@ -20,6 +20,8 @@ tolerance: every output is bytes or a bool.
   host, and a negative probe raises.
 - One counterpart for each JAX test the port does not run
   (test_torch_copies.NOT_RUN), named in COUNTERPARTS.
+- The JAX package's GL03 fixtures of test_cache_tier, linted by the
+  port's analyzer as files of the port's tree.
 """
 
 from __future__ import annotations
@@ -49,7 +51,7 @@ from garage_tpu_torch.block.device_backend import (StubDeviceBackend,
 from garage_tpu_torch.block.feeder import DeviceFeeder, _Item
 from garage_tpu_torch.model.garage import Garage
 from garage_tpu_torch.utils.config import read_config
-from test_torch_copies import NOT_RUN, port_helper
+from test_torch_copies import NOT_RUN, _defined_tests, port_helper
 
 # tier-1 runs several pytest workers per machine: one torch thread each
 torch.set_num_threads(1)
@@ -78,9 +80,13 @@ COUNTERPARTS = {
         "test_auto_negative_probe_raises",
     "test_feeder_sha256_host_floor_when_alone":
         "test_lone_stream_sha256_route_by_mode",
-    **{t: "test_gl03_verdicts_on_port_paths"
-       for t in NOT_RUN["test_cache_tier"]},
 }
+
+# the JAX package's GL03 fixtures of test_cache_tier
+with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "test_cache_tier.py")) as _f:
+    GL03_TESTS = sorted(t for t in _defined_tests(_f.read())
+                        if t.startswith("test_gl03_"))
 
 PERF_OPS = ("hash", "encode", "decode", "parity", "sha256")
 
@@ -756,16 +762,27 @@ def test_one_launch_shape_across_erasure_patterns():
     assert f.stats["decode_device_items"] == 4 * len(patterns) + 5
 
 
-@pytest.mark.parametrize("test", sorted(NOT_RUN["test_cache_tier"]))
+@pytest.mark.parametrize("test", GL03_TESTS)
 def test_gl03_verdicts_on_port_paths(test):
-    """The JAX package's GL03 fixtures, linted as files of the port's
-    tree (garage_tpu.analysis takes the port's paths): the same
+    """The JAX package's GL03 fixtures, linted by the port's analyzer
+    (garage_tpu_torch.analysis) as files of the port's tree: the same
     verdicts."""
+    import textwrap
+
     import test_cache_tier
 
+    from garage_tpu_torch.analysis import analyze_source, default_rules
+
+    def lint(src: str, rel_path: str):
+        assert rel_path.startswith("garage_tpu_torch/"), rel_path
+        ctx = analyze_source(textwrap.dedent(src), default_rules(),
+                             rel_path=rel_path)
+        return sorted({v.rule for v in ctx.violations if v.active})
+
+    assert len(GL03_TESTS) == 6
     src = inspect.getsource(getattr(test_cache_tier, test))
     assert '"garage_tpu/' in src
-    ns = dict(vars(test_cache_tier))
+    ns = dict(vars(test_cache_tier), _lint=lint)
     exec(compile(src.replace('"garage_tpu/', '"garage_tpu_torch/'),
                  test_cache_tier.__file__, "exec"), ns)
     ns[test]()
