@@ -129,10 +129,11 @@ class StageJob:
     cancelled BEFORE it is claimed is never executed at all: stage fns
     can carry side effects (the d2h MD5 lane advance), which must not
     land after their batch has already failed. `busy` is the fn's
-    exclusive execution time (the per-op stage breakdown), NOT the
-    pipeline wall, which includes queue wait behind sibling batches."""
+    exclusive execution time, NOT the pipeline wall, which includes
+    queue wait behind sibling batches; `wait` is that queue wait, from
+    submit to the claim (both in seconds)."""
 
-    __slots__ = ("loop", "fut", "fn", "claimed", "busy")
+    __slots__ = ("loop", "fut", "fn", "claimed", "busy", "wait", "t_sub")
 
     def __init__(self, loop, fn):
         self.loop = loop
@@ -140,6 +141,8 @@ class StageJob:
         self.fn = fn
         self.claimed = False
         self.busy = 0.0
+        self.wait = 0.0
+        self.t_sub = time.perf_counter()
 
 
 class StageExecutor:
@@ -168,8 +171,9 @@ class StageExecutor:
             job = self._jobs.get()
             if job.fut.cancelled():
                 continue  # abandoned while queued: never execute
-            job.claimed = True
             t0 = time.perf_counter()
+            job.wait = t0 - job.t_sub  # set before `claimed` is seen
+            job.claimed = True
             try:
                 res, err = job.fn(), None
             except BaseException as e:

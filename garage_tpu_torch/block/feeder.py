@@ -137,13 +137,16 @@ class _DeviceHang(Exception):
 
 
 class _Item:
-    __slots__ = ("op", "data", "future", "extra")
+    __slots__ = ("op", "data", "future", "extra", "t_q")
 
     def __init__(self, op: str, data, future, extra=None):
         self.op = op
         self.data = data
         self.future = future
         self.extra = extra
+        # when it entered the queue (perf_counter_ns): its queue wait
+        # ends when its batch's task is created
+        self.t_q = time.perf_counter_ns()
 
 
 class DeviceFeeder:
@@ -244,15 +247,18 @@ class DeviceFeeder:
                       "decode_device_bytes": 0,
                       # device groups re-run on the host: none ever is (a
                       # failed group raises); the chip smoke checks it
-                      "device_fallbacks": 0}
+                      "device_fallbacks": 0,
+                      # items that went through the queue and the us they
+                      # waited there, from submit to their batch's task
+                      "queued_items": 0, "queue_wait_us": 0,
+                      # staged jobs and the us each waited for its stage
+                      # thread, from submit to the thread's claim
+                      "stage_jobs": 0, "stage_wait_us": 0}
         # staged pipeline state: the current executor generation, the
         # batches in flight, per-stage busy seconds and the wall-clock
         # union of windows with >= 1 device leg in flight
         self._pl: Optional[DevicePipeline] = None
         self._pl_busy: dict[str, float] = {s: 0.0 for s in STAGES}
-        # the same busy seconds split by op: where the device route's
-        # time goes (h2d packing, launch, readback + host finish)
-        self._op_busy: dict[str, dict[str, float]] = {}
         # items by op on the device and on the host route
         self._op_items: dict[str, int] = {}
         self._op_host_items: dict[str, int] = {}
@@ -783,6 +789,10 @@ class DeviceFeeder:
                 while len(self._inflight_tasks) >= self.inflight_batches:
                     await asyncio.wait(self._inflight_tasks,
                                        return_when=asyncio.FIRST_COMPLETED)
+                now = time.perf_counter_ns()
+                self.stats["queued_items"] += len(batch)
+                self.stats["queue_wait_us"] += sum(
+                    now - it.t_q for it in batch) // 1000
                 t = asyncio.create_task(self._finish_batch(batch),
                                         name="feeder-batch")
                 self._inflight_tasks.add(t)
@@ -907,9 +917,6 @@ class DeviceFeeder:
             pl, "compute", lambda: be().compute(op, staged), busy)
         out = await self._stage_call(
             pl, "d2h", lambda: be().readback(op, handle), busy)
-        per_op = self._op_busy.setdefault(op, dict.fromkeys(STAGES, 0.0))
-        for stage, sec in zip(STAGES, busy):
-            per_op[stage] += sec
         return out, sum(busy)
 
     async def _stage_call(self, pl: DevicePipeline, stage: str, fn,
@@ -935,6 +942,9 @@ class DeviceFeeder:
             abort.cancel()
             if not job.fut.done():
                 job.fut.cancel()
+            if job.claimed:
+                self.stats["stage_jobs"] += 1
+                self.stats["stage_wait_us"] += int(job.wait * 1e6)
 
     # ---- pipeline lifecycle + overlap accounting (loop thread) ---------
 
@@ -966,17 +976,15 @@ class DeviceFeeder:
             self._pl_wall += time.monotonic() - self._win_t0
 
     def pipeline_stats(self) -> dict:
-        """Per-stage busy seconds (in total and by op), items by op on
-        each route, the wall-clock union of in-flight windows, and
-        busy/wall (> 1.0 means stages overlapped)."""
+        """Per-stage busy seconds, items by op on each route, the
+        wall-clock union of in-flight windows, and busy/wall (> 1.0
+        means stages overlapped)."""
         busy = {k: round(v, 6) for k, v in self._pl_busy.items()}
         wall = self._pl_wall
         if self._win_open > 0:
             wall += time.monotonic() - self._win_t0
         total = sum(self._pl_busy.values())
         return {"busy_s": busy,
-                "op_busy_s": {op: {k: round(v, 6) for k, v in st.items()}
-                              for op, st in self._op_busy.items()},
                 "op_items": dict(self._op_items),
                 "op_host_items": dict(self._op_host_items),
                 "wall_s": round(wall, 6),

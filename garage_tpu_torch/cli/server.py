@@ -17,8 +17,10 @@ What differs from the JAX package: `--device`, which the gateway
 workers inherit; a node with `[tpu] enable = true` (the feeder's
 "require") stops at startup when that device cannot be reached, and
 one with `enable = false` runs host-only, as in the JAX package, and
-needs no device at all. The operator CLI (cli/main.py) reaches the
-node over RPC as before.
+needs no device at all. With tracing on from the environment
+(`GARAGE_TPU_TRACE`), the node also meters its event loop
+(utils/tracing.py). The operator CLI (cli/main.py) reaches the node
+over RPC as before.
 """
 
 from __future__ import annotations
@@ -61,6 +63,12 @@ async def run_server(cfg_path: str, device="cuda") -> None:
 
 
 async def _run_server_locked(cfg, cfg_path: str, device) -> None:
+    if os.environ.get("GARAGE_TPU_TRACE"):
+        from ..utils.tracing import tracer
+
+        # tracing on from the environment: meter this node's event loop
+        # (utils/tracing.py LoopMeter); it stops when the loop closes
+        tracer.start_meter()
     garage = Garage(cfg, device=device)
     admin = AdminRpcHandler(garage)  # also serves the CLI's RPC endpoint
     otlp = None

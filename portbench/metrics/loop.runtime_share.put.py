@@ -1,0 +1,12 @@
+"""Host event loop: the share of its time in the window that it was
+busy with no program frame on the loop thread (asyncio's machinery,
+streams, the stdlib), from the loop.window records of the port's loop
+meter: the sum of us.runtime over the sum of busy_us + idle_us, in %."""
+
+
+def read(r):
+    w = [s["attrs"] for s in r.spans if s["name"] == "loop.window"]
+    total = sum(a["busy_us"] + a["idle_us"] for a in w)
+    if total <= 0:
+        return None
+    return 100.0 * sum(a["us.runtime"] for a in w) / total

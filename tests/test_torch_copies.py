@@ -41,7 +41,7 @@ PORTED = {
     "block/codec.py", "block/device_backend.py", "block/feeder.py",
     "block/manager.py",
     "model/garage.py", "api/signature.py", "api/s3/put.py", "cli/server.py",
-    "gateway/supervisor.py", "gateway/worker.py",
+    "gateway/supervisor.py", "gateway/worker.py", "utils/tracing.py",
     "parallel/__init__.py", "parallel/mesh.py",
     "analysis/__main__.py", "analysis/core.py", "analysis/rules_device.py",
     "analysis/rules_project.py",
