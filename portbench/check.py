@@ -5,14 +5,21 @@ closed and drained: every number is a count, compared exactly (limit
 From the load generator (hashlib, byte equality):
 - failed: requests (the ramp's and the window's) and fill PUTs that
   got no 2xx reply (a wrong chunk-signature verdict on a sound body
-  fails its PUT);
-- etag_bad: acknowledged PUTs whose ETag is not the MD5 of the body;
+  fails its PUT), and multipart uploads that never completed;
+- etag_bad: acknowledged PutObjects and UploadParts whose ETag is not
+  the MD5 of the body, and completed uploads whose ETag is not the MD5
+  of the parts' binary MD5s, a dash and the part count (S3's rule,
+  reference.multipart_etag);
 - get_bad: GET replies whose body or ETag differs from the object PUT;
+  in a multipart mix, the read-back of one completed upload (the
+  smallest of two parts or more), whose body must be its parts in
+  order and whose ETag must be the upload's;
 - forged_accepted: signed PUTs with a forged chunk signature that the
   server accepted (signed mixes only).
 From the nodes' data directories, for a sample of the acknowledged
-objects drawn from the seed, the largest among them, held against
-reference.py:
+units drawn from the seed, the largest among them, held against
+reference.py (a unit is an object, or a part of a completed multipart
+upload: the port cuts each part into blocks of its own):
 - blocks_unfound: blocks stored under no file named by the reference
   BLAKE3 of their bytes;
 - shards_bad: stored files of those blocks whose framing, checksum or
@@ -34,11 +41,12 @@ from portbench import traffic
 
 
 def sample(objects: list, seed: int, budget: int) -> list:
-    """A seeded sample of (tag, index, size) objects, the largest first,
-    then others in a seeded order until `budget` bytes."""
+    """A seeded sample of (tag, index, size) units, the largest first,
+    then others in a seeded order until `budget` bytes. A part's index
+    is (object, part number)."""
     if not objects:
         return []
-    order = sorted(objects, key=lambda o: (-o[2], o[1]))
+    order = sorted(objects, key=lambda o: (-o[2], o[0], o[1]))
     rest = order[1:]
     rng = np.random.default_rng([traffic.seed64(seed), 5])
     picked, total = [order[0]], order[0][2]
@@ -59,7 +67,7 @@ def stored(cfg: dict, plan: traffic.Plan, objects: list,
     ec = g.get("erasure_coding")
     k, m = map(int, ec.split(",")) if ec else (0, 0)
     blocks = [blk for tag, i, size in objects
-              for blk in _cut(plan.body(tag, i, size), bs)]
+              for blk in _cut(plan.unit_body(tag, i, size), bs)]
     hashes = ref.blake3_many(blocks)
     out = {"blocks_checked": len(blocks), "blocks_unfound": 0,
            "shards_bad": 0, "blocks_below_quorum": 0}

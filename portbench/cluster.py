@@ -83,6 +83,21 @@ class Cluster:
             g.system.layout_manager.history.current().version == 1
             for g in self.garages), 120, "layout v1")
 
+    def deployed_intervals(self) -> None:
+        """From here on every node gossips at the program's defaults, as a
+        deployment does: status exchange every 10 s, pings every 15 s,
+        connection retries every 30 s. The nodes boot at 1 s and 2 s, so
+        that the mesh and the layout converge in seconds; the window does
+        not pay for that."""
+        from garage_tpu_torch.net.peering import (CONN_RETRY_INTERVAL,
+                                                  PING_INTERVAL)
+        from garage_tpu_torch.rpc.system import STATUS_EXCHANGE_INTERVAL
+
+        for g in self.garages:
+            g.system.status_interval = STATUS_EXCHANGE_INTERVAL
+            g.system.peering.ping_interval = PING_INTERVAL
+            g.system.peering.retry_interval = CONN_RETRY_INTERVAL
+
     def syncers(self) -> list:
         return [t.syncer for g, up in zip(self.garages, self.alive) if up
                 for t in g.all_tables()]

@@ -15,11 +15,15 @@ runs plant none). Each patches the running port in this process.
   batch of one the previous batch's.
 - flip: an answer altered where it is produced: one bit of every
   output row of G1 (parity and decode) and of B3 (content hashes).
+- mpu_drop_part: CompleteMultipartUpload leaves the last part's blocks
+  out of the object's version and still reports the full ETag.
 """
 
 from __future__ import annotations
 
-NAMES = ("control", "noop_put", "half_batch", "flip")
+import contextvars
+
+NAMES = ("control", "noop_put", "half_batch", "flip", "mpu_drop_part")
 
 
 def install(name: str, cluster, spec: dict) -> None:
@@ -90,3 +94,35 @@ def _flip(cluster, spec: dict) -> None:
         def flipped(*a, orig=orig, **kw):
             return _flip_rows(orig(*a, **kw))
         setattr(mod, name, flipped)
+
+
+def _mpu_drop_part(cluster, spec: dict) -> None:
+    from garage_tpu_torch.api.s3 import multipart
+    from garage_tpu_torch.model.s3.version_table import Version
+    from garage_tpu_torch.utils.crdt import CrdtMap
+
+    completing = contextvars.ContextVar("completing", default=False)
+    orig = multipart.handle_complete_multipart
+
+    async def complete(ctx, req):
+        token = completing.set(True)
+        try:
+            return await orig(ctx, req)
+        finally:
+            completing.reset(token)
+    multipart.handle_complete_multipart = complete
+
+    table = cluster.garages[0].version_table
+    insert = table.insert
+
+    async def insert_short(entry, *a, **kw):
+        if completing.get() and isinstance(entry, Version) and entry.blocks:
+            last = max(pn for (pn, _off), _v in entry.blocks.items())
+            blocks = CrdtMap()
+            for (pn, off), v in entry.blocks.items():
+                if pn != last:
+                    blocks = blocks.put((pn, off), v)
+            entry = Version(entry.uuid, entry.deleted, blocks,
+                            entry.backlink)
+        return await insert(entry, *a, **kw)
+    table.insert = insert_short

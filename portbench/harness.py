@@ -204,6 +204,36 @@ def read_spans(path: str, lo_us: float, hi_us: float) -> list:
     return out
 
 
+def _acked_puts(records: list, uploads: list, plan) -> list:
+    """The units of the stored-block check in a PUT mix: each
+    acknowledged PutObject, and each part of a completed upload (the
+    port cuts every part into blocks of its own)."""
+    uploaded = {u[0] for u in uploads}
+    units = [("put", r[0], r[3]) for r in records
+             if r[4] == 200 and r[0] not in uploaded]
+    for i, size, _n, status, *_ in uploads:
+        if status == 200:
+            units += [("part", (i, n), s) for n, s in
+                      enumerate(plan.part_sizes(size), 1)]
+    return units
+
+
+def _multipart_summary(uploads: list, seconds: float,
+                       readback: dict | None) -> dict:
+    """What a multipart mix adds to the result's "window": its uploads,
+    each Complete's seconds, sorted, the bytes of the uploads completed
+    inside the window over its seconds (GB/s), and the read-back."""
+    sent = [u for u in uploads if u[3] is not None]
+    done = [u for u in uploads if u[3] == 200 and 0 <= u[6] <= seconds]
+    return {"uploads": len(uploads),
+            "uploads_completed": sum(1 for u in uploads if u[3] == 200),
+            "parts": sum(u[2] for u in uploads),
+            "complete_s": sorted(u[6] - u[5] for u in sent),
+            "completed_in_window_gbps":
+                sum(u[1] for u in done) / 1e9 / seconds,
+            "readback": readback}
+
+
 async def run(cell_name: str, seed: int, seconds: float, trace: bool,
               t_start_wall: float, device: str = "cuda",
               fault: str | None = None, manifest: dict | None = None,
@@ -252,6 +282,7 @@ async def _run(cell, cfg, spec, seed, seconds, trace, t_start_wall, device,
         out["settle_s"] = await cluster.settle()
         port = await cluster.serve_s3()
         key_id, secret = await cluster.key_and_bucket(BUCKET)
+        cluster.deployed_intervals()
         await gen.start({"traffic": spec, "seed": seed, "host": "127.0.0.1",
                          "port": port, "key_id": key_id, "secret": secret,
                          "region": cluster.garages[0].config.s3_region,
@@ -294,7 +325,11 @@ async def _run(cell, cfg, spec, seed, seconds, trace, t_start_wall, device,
             tracing.tracer.disable()
         if device == "cuda":
             out["memory_peak_bytes"] = torch.cuda.max_memory_allocated()
-        forged = []
+        forged, readback = [], None
+        if spec.get("multipart"):
+            await gen.send({"cmd": "readback"})
+            readback = await gen.expect("read_back", 900)
+            del readback["event"]
         if spec.get("payload") == "signed":
             await gen.send({"cmd": "probe"})
             forged = (await gen.expect("probed"))["statuses"]
@@ -315,7 +350,8 @@ async def _run(cell, cfg, spec, seed, seconds, trace, t_start_wall, device,
         await gen.close()
         await cluster.stop()
     # the reference runs once the program's state is freed
-    acked = ([("put", r[0], r[3]) for r in data.records if r[4] == 200]
+    uploads = done["uploads"]
+    acked = (_acked_puts(data.records, uploads, plan)
              if spec["op"] == "put" else
              [("fill", j, plan.fill_size(j)) for j in range(plan.fill_count)])
     t0 = time.monotonic()
@@ -324,12 +360,15 @@ async def _run(cell, cfg, spec, seed, seconds, trace, t_start_wall, device,
     stored = check.stored(cfg, plan, picked, data_dirs)
     out["check_s"] = time.monotonic() - t0
     recs = data.records
+    readback_bad = int(readback is not None and readback["index"] is not None
+                       and not readback["ok"])
     checks = {
-        "failed": sum(1 for r in recs if r[4] != 200) + fill_bad,
+        "failed": sum(1 for r in recs if r[4] != 200) + fill_bad
+        + sum(1 for u in uploads if u[3] != 200),
         "etag_bad": sum(1 for r in recs if r[4] == 200 and r[5] is False)
         if spec["op"] == "put" else 0,
-        "get_bad": sum(1 for r in recs if r[4] == 200 and r[5] is False)
-        if spec["op"] == "get" else 0,
+        "get_bad": (sum(1 for r in recs if r[4] == 200 and r[5] is False)
+                    if spec["op"] == "get" else 0) + readback_bad,
         "blocks_unfound": stored["blocks_unfound"],
         "shards_bad": stored["shards_bad"],
         "blocks_below_quorum": stored["blocks_below_quorum"],
@@ -373,6 +412,9 @@ async def _run(cell, cfg, spec, seed, seconds, trace, t_start_wall, device,
                                                "fill_s", "warm_s", "check_s")
                            if k in out},
                         "blocks_checked": stored["blocks_checked"]}
+    if spec.get("multipart"):
+        result["window"].update(
+            _multipart_summary(uploads, seconds, readback))
     result["checks"] = {k: {"value": checks[k],
                             "limit": limits[k],
                             "bound": "min" if k == "objects_checked"

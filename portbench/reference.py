@@ -10,6 +10,8 @@ sharing no code and no tables with the program.
 - Reed-Solomon RS(k, m) over GF(2^8) with the primitive polynomial 0x11D
   and the systematic generator [I_k ; C], C[i][j] = 1 / (x_i + y_j) with
   x_i = i and y_j = m + j: the code the port stores erasure shards in.
+- The ETag of a multipart upload (S3's rule): the MD5 of the parts'
+  binary MD5s in part order, a dash, and the number of parts.
 - The block and shard file formats the port writes: a block is packed as
   one scheme byte (0: stored plain) and the payload; an erasure shard
   file is 4 magic bytes ("GTS2": CRC-32C, "GTS3": zlib CRC-32), the
@@ -21,6 +23,7 @@ sharing no code and no tables with the program.
 
 from __future__ import annotations
 
+import hashlib
 import zlib
 
 import numpy as np
@@ -353,3 +356,13 @@ def parse_shard(raw: bytes) -> tuple[str, int, int, bytes]:
 
 def crc32(data) -> int:
     return zlib.crc32(data)
+
+
+# ---------------------------------------------------------------------------
+# S3 ETags
+# ---------------------------------------------------------------------------
+
+def multipart_etag(part_md5s: list[bytes]) -> str:
+    """The ETag of a completed multipart upload from its parts' binary
+    MD5s, in part order."""
+    return f"{hashlib.md5(b''.join(part_md5s)).hexdigest()}-{len(part_md5s)}"

@@ -2,7 +2,10 @@
 (a frozen copy of tests/s3util.py's `S3Client.signing_key`, `sign` and
 `chunked_signed_body`, which share no code with the server's
 api/signature.py), over one persistent HTTP/1.1 connection per client,
-as SDKs keep them."""
+as SDKs keep them. Besides PutObject and GetObject it sends the three
+requests of a multipart upload: CreateMultipartUpload
+(POST ?uploads), UploadPart (PUT ?partNumber=n&uploadId=u) and
+CompleteMultipartUpload (POST ?uploadId=u with the parts' XML)."""
 
 from __future__ import annotations
 
@@ -11,6 +14,7 @@ import hashlib
 import hmac
 import http.client
 import urllib.parse
+import xml.etree.ElementTree as ET
 from typing import Optional
 
 ALGORITHM = "AWS4-HMAC-SHA256"
@@ -28,6 +32,29 @@ def _hmac(key: bytes, msg: str) -> bytes:
 
 def uri_encode(s: str, encode_slash: bool = True) -> str:
     return urllib.parse.quote(s, safe="-_.~" if encode_slash else "-_.~/")
+
+
+def url(path: str, query=()) -> str:
+    """`path?query` as the AWS CLI sends it: a key with an empty value
+    goes bare (`?uploads`); the signature canonicalises it as
+    `uploads=`."""
+    if not query:
+        return path
+    return path + "?" + "&".join(
+        uri_encode(k) + (f"={uri_encode(v)}" if v else "") for k, v in query)
+
+
+def xml_text(body: bytes, tag: str) -> str:
+    """The text of the first element whose local name is `tag` ("" where
+    there is none or the body is no XML)."""
+    try:
+        root = ET.fromstring(body)
+    except ET.ParseError:
+        return ""
+    for el in root.iter():
+        if el.tag.split("}")[-1] == tag:
+            return el.text or ""
+    return ""
 
 
 class Signer:
@@ -142,13 +169,13 @@ class Client:
     def _host(self) -> dict:
         return {"host": f"{self.host}:{self.port}"}
 
-    def put_unsigned(self, path: str, body: bytes):
-        headers = self.signer.sign("PUT", path, [], self._host(),
+    def put_unsigned(self, path: str, body: bytes, query=()):
+        headers = self.signer.sign("PUT", path, list(query), self._host(),
                                    "UNSIGNED-PAYLOAD")
-        return self._send("PUT", path, body, headers)
+        return self._send("PUT", url(path, query), body, headers)
 
     def signed_chunked_body(self, path: str, chunks: list,
-                            forge_chunk: Optional[int] = None
+                            forge_chunk: Optional[int] = None, query=()
                             ) -> tuple[dict, bytes]:
         """Headers and aws-chunked body of a signed streaming PUT;
         `forge_chunk` alters that chunk's signature."""
@@ -158,8 +185,8 @@ class Client:
         headers["content-encoding"] = "aws-chunked"
         headers["x-amz-decoded-content-length"] = str(
             sum(len(c) for c in chunks))
-        headers = self.signer.sign("PUT", path, [], headers, STREAMING,
-                                   now=now)
+        headers = self.signer.sign("PUT", path, list(query), headers,
+                                   STREAMING, now=now)
         seed = headers["authorization"].rsplit("Signature=", 1)[1]
         body = self.signer.chunked_signed_body(chunks, amz_date, seed)
         if forge_chunk is not None:
@@ -171,10 +198,35 @@ class Client:
                     + body[i + 1:])
         return headers, body
 
-    def put_signed(self, path: str, headers: dict, body: bytes):
-        return self._send("PUT", path, body, headers)
+    def put_signed(self, path: str, headers: dict, body: bytes, query=()):
+        return self._send("PUT", url(path, query), body, headers)
 
     def get(self, path: str):
         headers = self.signer.sign("GET", path, [], self._host(),
                                    EMPTY_SHA256)
         return self._send("GET", path, b"", headers)
+
+    def post(self, path: str, query: list, body: bytes = b""):
+        """A POST whose payload is signed by its SHA-256, as the AWS CLI
+        signs its small XML bodies."""
+        headers = self.signer.sign("POST", path, query, self._host(),
+                                   _sha256(body))
+        return self._send("POST", url(path, query), body, headers)
+
+    def create_multipart(self, path: str):
+        """-> (status, headers, upload id or "")."""
+        st, hdr, body = self.post(path, [("uploads", "")])
+        return st, hdr, xml_text(body, "UploadId") if st == 200 else ""
+
+    def complete_multipart(self, path: str, upload_id: str,
+                           etags: list[str]):
+        """Completes with parts 1..len(etags) and the ETags their
+        UploadParts returned -> (status, headers, the upload's ETag or
+        "")."""
+        xml = "".join(f'<Part><PartNumber>{n}</PartNumber><ETag>"{e}"</ETag>'
+                      "</Part>" for n, e in enumerate(etags, 1))
+        body = f"<CompleteMultipartUpload>{xml}</CompleteMultipartUpload>"
+        st, hdr, rbody = self.post(path, [("uploadId", upload_id)],
+                                   body.encode())
+        etag = xml_text(rbody, "ETag").strip('"') if st == 200 else ""
+        return st, hdr, etag

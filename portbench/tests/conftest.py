@@ -17,7 +17,9 @@ if ROOT not in sys.path:
 def small_bench(dst: str) -> str:
     """portbench's configs/, traffic/ and metrics/ under `dst`, every
     mix cut to 4 clients, objects of 64 KiB-1 MiB (8 sizes) and a 1 s
-    ramp, fills to 16 objects."""
+    ramp, fills to 16 objects; a multipart mix to objects of 256 KiB-2
+    MiB in parts of 256 KiB from 256 KiB up, so that it stays multipart
+    (2 to 8 parts an object)."""
     for sub in ("configs", "traffic", "metrics"):
         shutil.copytree(os.path.join(ROOT, "portbench", sub),
                         os.path.join(dst, sub))
@@ -30,6 +32,10 @@ def small_bench(dst: str) -> str:
                     ramp_s=1)
         if "fill" in spec:
             spec["fill"]["objects"] = 16
+        if "multipart" in spec:
+            spec.update(size_min=256 << 10, size_max=2 << 20,
+                        multipart={"threshold": 256 << 10,
+                                   "part_size": 256 << 10})
         with open(p, "w") as f:
             json.dump(spec, f)
     return dst

@@ -109,7 +109,58 @@ def test_traced_run_reads_the_new_metric(tmp_path):
     assert set(r["metrics"]) == {"feeder.hash_items.put"}
 
 
+MULTIPART_CELL = {
+    "workload": {"name": "ec10_4.put_multipart_16m", "config": "ec10_4",
+                 "traffic": "put_multipart_16m", "chips": 1,
+                 "why": "a multipart cell that only the test's manifest has"},
+    "e2e": ("put_gbps",),
+}
+
+
+# the multipart mix as small_bench cuts it, its parts sent as signed
+# aws-chunked bodies
+SIGNED_MULTIPART = {"traffic/put_multipart_signed.json": json.dumps({
+    "op": "put", "payload": "signed", "chunk": 65536, "clients": 4,
+    "size_min": 256 << 10, "size_max": 2 << 20, "strata": 8, "ramp_s": 1,
+    "multipart": {"threshold": 256 << 10, "part_size": 256 << 10}})}
+
+
+@pytest.mark.parametrize("payload", ["unsigned", "signed"])
+def test_a_multipart_cell_found_only_by_name_proves_correct(tmp_path,
+                                                            payload):
+    """A configuration file, a traffic file and a manifest entry are all
+    a multipart cell needs; parts go as the mix's payload says."""
+    cell = {**MULTIPART_CELL, "workload": dict(MULTIPART_CELL["workload"])}
+    files = None
+    if payload == "signed":
+        cell["workload"].update(name="ec10_4.put_multipart_signed",
+                                traffic="put_multipart_signed")
+        files = SIGNED_MULTIPART
+    out = cpu_run(tmp_path, cell["workload"]["name"], extra_cell=cell,
+                  extra_files=files)
+    r = out["result"]
+    assert r["correct"] is True, r["checks"]
+    assert set(r["metrics"]) == {"put_gbps", "setup_s"}
+    assert r["metrics"]["put_gbps"]["value"] > 0
+    assert r["checks"]["objects_checked"]["value"] >= 1
+    w = r["window"]
+    assert w["uploads"] >= 1 and w["uploads_completed"] == w["uploads"]
+    assert w["parts"] >= 2 * w["uploads"]  # 2-8 parts an object here
+    assert len(w["complete_s"]) == w["uploads"]
+    assert w["completed_in_window_gbps"] >= 0
+    rb = w["readback"]
+    assert rb["ok"] is True and rb["parts"] >= 2 and rb["status"] == 200
+    if payload == "signed":
+        assert r["checks"]["forged_accepted"]["value"] == 0
+    assert not {"jax", "jaxlib", "flax", "garage_tpu"} & set(out["modules"])
+
+
 @pytest.mark.parametrize("cell,fault", [
+    ("ec10_4.put_multipart_16m", "control"),
+    ("ec10_4.put_multipart_16m", "noop_put"),
+    ("ec10_4.put_multipart_16m", "half_batch"),
+    ("ec10_4.put_multipart_16m", "flip"),
+    ("ec10_4.put_multipart_16m", "mpu_drop_part"),
     ("ec10_4.put_unsigned", "control"),
     ("ec10_4.put_unsigned", "noop_put"),
     ("ec10_4.put_unsigned", "half_batch"),

@@ -158,3 +158,87 @@ def test_rs_generator_is_the_ports():
 
     assert (ref.generator(10, 4) == rs.generator_matrix(10, 4)).all()
     assert (ref.generator(4, 2) == rs.generator_matrix(4, 2)).all()
+
+
+def test_multipart_etag_is_s3s_rule():
+    # MD5 of the parts' binary MD5s in order, a dash, the part count
+    parts = [b"a" * 5 * 1024 * 1024, b"b" * 1024]
+    md5s = [hashlib.md5(p).digest() for p in parts]
+    want = hashlib.md5(md5s[0] + md5s[1]).hexdigest() + "-2"
+    assert ref.multipart_etag(md5s) == want
+    assert ref.multipart_etag(md5s[::-1]) != want
+    # one part: still the MD5 of its MD5, not the MD5 of the body
+    assert ref.multipart_etag(md5s[:1]) == \
+        hashlib.md5(md5s[0]).hexdigest() + "-1"
+    assert ref.multipart_etag(md5s[:1]) != hashlib.md5(parts[0]).hexdigest()
+
+
+def _store(dirs, blocks, k=10, m=4):
+    """Shard files of `blocks` as the port writes them, shard i in
+    dirs[i]."""
+    import os
+
+    for blk, h in zip(blocks, ref.blake3_many(blocks)):
+        packed = ref.packed_block(blk)
+        rows = ref.rs_encode(packed, k, m)
+        for i, row in enumerate(rows):
+            d = ref.block_dir(dirs[i], h)
+            os.makedirs(d, exist_ok=True)
+            raw = (ref.MAGIC_CRC32C + len(packed).to_bytes(8, "big")
+                   + ref.crc32c(row.tobytes()).to_bytes(4, "big")
+                   + row.tobytes())
+            with open(os.path.join(d, f"{h.hex()}.s{i}"), "wb") as f:
+                f.write(raw)
+
+
+def test_the_check_cuts_each_part_into_blocks_of_its_own(tmp_path):
+    """The Chunker restarts at each part: part n's blocks are cut from
+    part n alone, and the check finds them; the object's bytes cut as
+    one body are other blocks."""
+    from portbench import check, traffic
+
+    bs = 4096
+    spec = {"size_min": 1, "size_max": 2, "strata": 1,
+            "multipart": {"threshold": 1, "part_size": 6000}}
+    plan = traffic.Plan(spec, 2**31 + 3)
+    sizes = plan.part_sizes(15000)
+    assert sizes == [6000, 6000, 3000]
+    units = [("part", (7, n), s) for n, s in enumerate(sizes, 1)]
+    cfg = {"garage": {"block_size": bs, "erasure_coding": "10,4"},
+           "guarantees": {"write_quorum": 12}}
+    bodies = [plan.unit_body(*u) for u in units]
+    assert bodies[1] == plan.part_body(7, 2, 6000) != bodies[0]
+    good = [str(tmp_path / "good" / f"n{i}") for i in range(14)]
+    _store(good, [b[o:o + bs] for b in bodies for o in range(0, len(b), bs)])
+    out = check.stored(cfg, plan, units, good)
+    assert out == {"blocks_checked": 5, "blocks_unfound": 0,
+                   "shards_bad": 0, "blocks_below_quorum": 0}
+    whole = b"".join(bodies)
+    cut = [str(tmp_path / "whole" / f"n{i}") for i in range(14)]
+    _store(cut, [whole[o:o + bs] for o in range(0, len(whole), bs)])
+    out = check.stored(cfg, plan, units, cut)
+    # only the first block of the first part is the same
+    assert out["blocks_unfound"] == 4
+
+
+def test_the_sample_takes_parts_and_objects_alike():
+    from portbench import check
+
+    units = [("put", 3, 500), ("part", (1, 1), 1000), ("part", (1, 2), 10),
+             ("part", (2, 1), 1000), ("put", 4, 1000)]
+    picked = check.sample(units, 9, 1)
+    # the largest first; among equals, a part before an object
+    assert picked == [("part", (1, 1), 1000)]
+    assert sorted(check.sample(units, 9, 10**6)) == sorted(units)
+
+
+def test_sigv4_multipart_query():
+    s = sigv4.Signer("k", "s")
+    assert sigv4.url("/b/k", [("uploads", "")]) == "/b/k?uploads"
+    assert s._canonical_query([("uploads", "")]) == "uploads="
+    q = [("uploadId", "a b"), ("partNumber", "12")]
+    assert sigv4.url("/b/k", q) == "/b/k?uploadId=a%20b&partNumber=12"
+    assert s._canonical_query(q) == "partNumber=12&uploadId=a%20b"
+    assert sigv4.xml_text(b"<R xmlns='x'><UploadId>ab</UploadId></R>",
+                          "UploadId") == "ab"
+    assert sigv4.xml_text(b"not xml", "ETag") == ""

@@ -18,6 +18,13 @@ same law, and its window requests draw keys from them, each consecutive
 group of `fill.objects` requests a permutation of all of them.
 Bodies are random bytes from (seed, object), incompressible as stored
 media and backups are.
+
+Multipart: a mix with "multipart": {"threshold": t, "part_size": p}
+uploads an object of t bytes or more as ceil(size / p) UploadParts,
+each but the last exactly p bytes (the AWS CLI's multipart_threshold and
+multipart_chunksize); a smaller object is one PutObject. The sizes are
+the same law's either way. Part n of object i is random bytes from
+(seed, object i, part n), so no whole object body is ever made.
 """
 
 from __future__ import annotations
@@ -80,6 +87,25 @@ class Plan:
         rng = np.random.default_rng(
             [self.seed, _BODY_STREAM, 0 if tag == "put" else 1, i])
         return rng.bytes(size)
+
+    def part_sizes(self, size: int) -> list[int] | None:
+        """Lengths of the UploadParts of an object of `size` bytes, or
+        None where the mix sends it as one PutObject."""
+        mp = self.spec.get("multipart")
+        if not mp or size < mp["threshold"]:
+            return None
+        return blocks_of(size, mp["part_size"])
+
+    def part_body(self, i: int, n: int, size: int) -> bytes:
+        """Body of part n (from 1) of window object i."""
+        rng = np.random.default_rng([self.seed, _BODY_STREAM, 2, i, n])
+        return rng.bytes(size)
+
+    def unit_body(self, tag: str, idx, size: int) -> bytes:
+        """Body of a unit of the stored-block check: an object
+        ("put", i) or ("fill", j), or a part ("part", (i, n))."""
+        return (self.part_body(*idx, size) if tag == "part"
+                else self.body(tag, idx, size))
 
     # fill objects (read mixes)
 
