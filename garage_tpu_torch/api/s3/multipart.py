@@ -1,6 +1,5 @@
-"""Copy of garage_tpu/api/s3/multipart.py: import paths rewritten, issue and PR tags dropped.
-
-Multipart upload endpoints.
+"""Multipart upload endpoints (ported from the JAX package's
+api/s3/multipart.py).
 
 Ref parity: src/api/s3/multipart.rs:36-506. Create registers an
 Uploading{multipart} object version + MPU row; each part gets its own
@@ -8,6 +7,14 @@ Version (keyed by a fresh uuid) whose blocks it streams; Complete
 validates the client's part list against stored parts, splices all part
 versions into one final Version (renumbered by part), and writes the
 Complete object; Abort tombstones.
+
+What differs from the JAX package: the three handlers of an upload are
+traced, each under one span around its whole body: `s3.mpu.create`,
+`s3.mpu.put_part` (attrs `part`, `size`: the part number and its body's
+bytes) and `s3.mpu.complete` (attrs `parts`, `blocks`), with
+`s3.mpu.ref_repoint` (attr `blocks`) around the Complete's loop that
+re-points each block's ref to the final version. Attrs learnt inside a
+handler are set on the span's dict when they are known.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from ...model.s3.object_table import (Object, ObjectVersion,
 from ...model.s3.version_table import BACKLINK_MPU, BACKLINK_OBJECT, Version
 from ...utils.crdt import now_msec
 from ...utils.data import gen_uuid
+from ...utils.tracing import span
 from ..http import Request, Response
 from .put import Chunker, extract_metadata_headers, read_and_put_blocks
 from .xml import S3Error, xml, xml_response
@@ -61,6 +69,11 @@ async def _get_upload(ctx, upload_id_hex: str):
 
 async def handle_create_multipart(ctx, req: Request) -> Response:
     """ref: multipart.rs handle_create_multipart_upload."""
+    async with span("s3.mpu.create"):
+        return await _create_multipart(ctx, req)
+
+
+async def _create_multipart(ctx, req: Request) -> Response:
     from .encryption import META_SSEC_ALGO, META_SSEC_MD5, request_sse_key
 
     await req.body.drain()
@@ -84,6 +97,11 @@ async def handle_create_multipart(ctx, req: Request) -> Response:
 
 async def handle_put_part(ctx, req: Request) -> Response:
     """ref: multipart.rs handle_put_part."""
+    async with span("s3.mpu.put_part") as sp:
+        return await _put_part(ctx, req, sp.attrs)
+
+
+async def _put_part(ctx, req: Request, attrs: dict) -> Response:
     q = req.query
     try:
         part_number = int(q["partNumber"])
@@ -91,6 +109,7 @@ async def handle_put_part(ctx, req: Request) -> Response:
             raise ValueError
     except (KeyError, ValueError):
         raise S3Error("InvalidArgument", 400, "bad partNumber")
+    attrs["part"] = part_number
     mpu, ov = await _get_upload(ctx, q.get("uploadId", ""))
 
     # validate headers BEFORE inserting any rows — a 400 here must not
@@ -152,6 +171,7 @@ async def handle_put_part(ctx, req: Request) -> Response:
             log.warning("interrupted-part tombstone failed (block refs "
                         "leak until abort/complete): %s", e)
         raise
+    attrs["size"] = total
 
     # record the finished part
     done = MultipartUpload.new(mpu.upload_id, mpu.timestamp,
@@ -308,6 +328,11 @@ async def handle_upload_part_copy(ctx, req: Request) -> Response:
 
 async def handle_complete_multipart(ctx, req: Request) -> Response:
     """ref: multipart.rs handle_complete_multipart_upload."""
+    async with span("s3.mpu.complete") as sp:
+        return await _complete_multipart(ctx, req, sp.attrs)
+
+
+async def _complete_multipart(ctx, req: Request, attrs: dict) -> Response:
     import xml.etree.ElementTree as ET
 
     body = await req.body.read_all(limit=1 << 20)
@@ -346,6 +371,7 @@ async def handle_complete_multipart(ctx, req: Request) -> Response:
         if pn not in stored or (etag and stored[pn][1].etag != etag):
             raise S3Error("InvalidPart", 400, f"part {pn} not found")
         parts.append((pn, stored[pn][1]))
+    attrs["parts"] = len(parts)
 
     # splice all part versions into the final object version
     # (ref: multipart.rs:260-330)
@@ -362,6 +388,7 @@ async def handle_complete_multipart(ctx, req: Request) -> Response:
                             final.backlink)
             total_size += sz
         etag_md5.update(bytes.fromhex(part.etag))
+    attrs["blocks"] = n_blocks = len(final.blocks)
     # quotas are enforced at completion, when the real total is known
     # (ref: multipart.rs handle_complete_multipart_upload check_quotas)
     from .put import check_quotas
@@ -371,10 +398,12 @@ async def handle_complete_multipart(ctx, req: Request) -> Response:
     await check_quotas(ctx.garage, ctx.bucket_id, total_size, existing)
     await ctx.garage.version_table.insert(final)
     # re-point block refs from part versions to the final version
-    for pn, part in parts:
-        pv = await ctx.garage.version_table.get(part.version, b"")
-        for _k, (h, _s) in pv.blocks.items():
-            await ctx.garage.block_ref_table.insert(BlockRef.new(h, ov.uuid))
+    async with span("s3.mpu.ref_repoint", blocks=n_blocks):
+        for pn, part in parts:
+            pv = await ctx.garage.version_table.get(part.version, b"")
+            for _k, (h, _s) in pv.blocks.items():
+                await ctx.garage.block_ref_table.insert(
+                    BlockRef.new(h, ov.uuid))
 
     etag = f"{etag_md5.hexdigest()}-{len(parts)}"
     headers = (ov.state.headers if ov.state.kind == "uploading" else {})

@@ -16,7 +16,9 @@ What differs from the JAX package: the manager takes a torch `device`
 CPU in "off", where nothing touches the card; the shard file format
 adds `pack_shards` (all shards of a block framed in one buffer,
 byte-identical to `pack_shard`), which the feeder's encode_put readback
-uses.
+uses; a replicated block's quorum write is traced as
+`block.write_replicas` (attrs `copies`, `quorum`), the twin of the
+erasure path's `block.write_shards`.
 
 Local files (under the DataLayout path scheme):
   whole blocks:  {hex}[.zst|.zlib] content = DataBlock payload
@@ -525,18 +527,22 @@ class BlockManager:
 
     async def _put_replicate(self, hash32: bytes, comp: int,
                              payload: bytes) -> None:
+        from ..utils.tracing import span
+
         helper = self.system.layout_helper
         with helper.write_lock():
             sets = helper.write_sets_of(hash32)
-            # lint: ignore[GL06] write_lock is a layout-version PIN (refcount), not mutual exclusion; holding it across the quorum write IS the union-window contract (manager.rs:344)
-            await self.rpc.try_write_many_sets(
-                self.endpoint, sets,
-                {"op": "put", "hash": hash32, "part": None, "comp": comp,
-                 "data": payload},
-                RequestStrategy(quorum=self.codec.write_quorum,
-                                prio=PRIO_NORMAL,
-                                timeout=60.0),
-            )
+            async with span("block.write_replicas", copies=self.codec.width,
+                            quorum=self.codec.write_quorum):
+                # lint: ignore[GL06] write_lock is a layout-version PIN (refcount), not mutual exclusion; holding it across the quorum write IS the union-window contract (manager.rs:344)
+                await self.rpc.try_write_many_sets(
+                    self.endpoint, sets,
+                    {"op": "put", "hash": hash32, "part": None,
+                     "comp": comp, "data": payload},
+                    RequestStrategy(quorum=self.codec.write_quorum,
+                                    prio=PRIO_NORMAL,
+                                    timeout=60.0),
+                )
 
     async def _put_erasure(self, hash32: bytes, prefix: bytes,
                            data: bytes) -> None:

@@ -1,6 +1,5 @@
-"""Copy of garage_tpu/db/lsm.py: import paths rewritten, issue and PR tags dropped.
-
-Log-structured merge engine for metadata at millions of keys.
+"""Log-structured merge engine for metadata at millions of keys (ported
+from the JAX package's db/lsm.py).
 
 No reference analogue (the reference ships LMDB + sqlite behind the
 same `db/` seam; this build's third engine targets the workload the
@@ -47,6 +46,16 @@ yields to user latency and sprints when the node is idle. Inline
 backpressure: a flush that leaves a tree with an excessive segment
 count runs merges synchronously so an idle-loop-less process (bench,
 CLI) cannot accumulate unbounded runs.
+
+What differs from the JAX package: a delete writes a tombstone only
+where a run older than the active memtable (a frozen memtable or a
+segment) holds the key live; otherwise it drops the key from the
+memtable outright, since there is nothing to mask. Queue-like trees
+(merkle todo, insert queue, resync queue) insert a key and delete it
+soon after, and every scan from their start walked the tombstones of
+all keys deleted since the last flush: a cost that grew through a run
+until the 8 MiB flush, on worker threads that hold the interpreter
+lock. Reads, counts, the WAL and its replay are unchanged.
 """
 
 from __future__ import annotations
@@ -302,6 +311,16 @@ class _Memtable:
         self.d[key] = value
         self.bytes += len(value) if value is not None else 0
 
+    def drop(self, key: bytes) -> None:
+        """Forget `key`, leaving no tombstone."""
+        if key not in self.d:
+            return
+        old = self.d.pop(key)
+        self.bytes -= len(key) + (len(old) if old is not None else 0)
+        i = bisect.bisect_left(self.keys, key)
+        if i < len(self.keys) and self.keys[i] == key:
+            self.keys.pop(i)
+
     def get(self, key: bytes) -> tuple:
         if key in self.d:
             return (True, self.d[key])
@@ -544,6 +563,19 @@ class LsmEngine:
                 return v is not None
         return False
 
+    def _older_live(self, ts: _TreeState, key: bytes) -> bool:
+        """Whether a run older than the active memtable holds `key`
+        live: the one case where a delete needs a tombstone."""
+        for src in ts.frozen:
+            found, v = src.get(key)
+            if found:
+                return v is not None
+        for seg in ts.segments:
+            found, v = seg.get(key, self._cache)
+            if found:
+                return v is not None
+        return False
+
     def _apply_put(self, ts: _TreeState, key: bytes,
                    value: Optional[bytes],
                    known_existed: Optional[bool] = None) -> int:
@@ -554,7 +586,10 @@ class LsmEngine:
         otherwise pay a redundant bloom+block lookup per write)."""
         existed = self._exists(ts, key) if known_existed is None \
             else known_existed
-        ts.mem.put(key, value)
+        if value is None and not self._older_live(ts, key):
+            ts.mem.drop(key)
+        else:
+            ts.mem.put(key, value)
         delta = (0 if existed else 1) if value is not None \
             else (-1 if existed else 0)
         ts.count += delta

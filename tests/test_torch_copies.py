@@ -39,8 +39,9 @@ PORTED = {
     "ops/__init__.py", "ops/_build.py", "ops/gf256.py", "ops/gf_kernel.py",
     "ops/rs.py", "ops/treehash.py", "ops/sha256.py",
     "block/codec.py", "block/device_backend.py", "block/feeder.py",
-    "block/manager.py",
-    "model/garage.py", "api/signature.py", "api/s3/put.py", "cli/server.py",
+    "block/manager.py", "db/lsm.py",
+    "model/garage.py", "api/signature.py", "api/s3/put.py",
+    "api/s3/multipart.py", "cli/server.py",
     "gateway/supervisor.py", "gateway/worker.py", "utils/tracing.py",
     "parallel/__init__.py", "parallel/mesh.py",
     "analysis/__main__.py", "analysis/core.py", "analysis/rules_device.py",
